@@ -92,7 +92,9 @@ def bp_decode_plain(llr, edge_var, edge_slot, slot_edge, max_iters=20,
 
 def bp_decode_cuda(llr, edge_var, edge_slot, slot_edge, max_iters=20,
                    return_posterior=False):
-    """The kernel: one warp per codeword, any leading batch shape."""
+    """The kernel: one 96-thread block per codeword, one check per thread,
+    any leading batch shape. Without the posterior a codeword stops at its
+    first iteration with no parity error, where its outputs are final."""
     dev = llr.device
     batch_shape = llr.shape[:-1]
     l = llr.reshape(-1, FT8_LDPC_N).to(torch.float32).contiguous()

@@ -9,7 +9,9 @@ These cover what chip_smoke.py's main-path shapes do not: ragged sizes
 (a batch or candidate count that does not fill a block), longer rows and
 rows whose length is not a multiple of 4 (the waterfall's scalar loads),
 leading batch shapes, int32 and int64 candidate fields, out-of-window
-candidates, operand checks and the launch counters. Holds as in
+candidates, the fused sync survivors on ties and on an unaligned view,
+BP's early exit at several iteration counts, operand checks and the
+launch counters. Holds as in
 chip_smoke.py: waterfall <= 1 step on < 0.1% of cells, sync / s2 / BP
 bit-exact, LLRs within 1e-5, the int8 decimator within rtol 1e-4,
 atol 1e-5 of its plain version.
@@ -85,16 +87,49 @@ def test_waterfall_batch_and_row_stride(dec, batch, n):
                                                     *_wf_tables(dec)[:3]))
 
 
-def test_sync_ragged_batch(dec):
+def _assert_same_candidates(got, want):
+    for k, v in want.items():
+        assert torch.equal(got[k].cpu(), v), k
+
+
+@pytest.mark.parametrize("batch", [1, 3, 65, "equal"])
+def test_sync_ragged_batch(dec, batch):
+    """The fused first stage at B = 1, 3, 65 and on an all-equal
+    waterfall (every score 0, so every chunk ties throughout): v1, gidx,
+    the scores-only mode and find_sync's dict equal the plain path's."""
     rng = np.random.default_rng(2)
-    wf = torch.from_numpy(rng.integers(0, 256, (3, 92, 2, 2, 256),
-                                       dtype=np.uint8)).cuda()
-    got = sync.sync_scores(wf, dec.sync_count)
-    assert torch.equal(got, sync.sync_scores_plain(wf, dec.sync_count))
-    top = sync.find_sync(wf, dec.sync_count)
-    ref = sync.find_sync(wf.cpu(), dec.sync_count.cpu())
-    for k, v in ref.items():
-        assert torch.equal(top[k].cpu(), v), k
+    if batch == "equal":
+        host = np.full((2, 92, 2, 2, 256), 9, np.uint8)
+    else:
+        host = rng.integers(0, 256, (batch, 92, 2, 2, 256), dtype=np.uint8)
+    wf = torch.from_numpy(host).cuda()
+    count = dec.sync_count
+    before = sync.KERNEL.launches
+    v1, gidx = sync.sync_survivors(wf, count)
+    assert sync.KERNEL.launches == before + 1
+    assert v1.shape == gidx.shape == (host.shape[0], sync.NUM_SURVIVORS)
+    want_scores = sync.sync_scores_plain(wf.cpu(), count.cpu())
+    assert torch.equal(sync.sync_scores(wf, count).cpu(), want_scores)
+    want_v1, want_gidx = sync.chunk_survivors(want_scores)
+    assert torch.equal(v1.cpu(), want_v1)
+    assert torch.equal(gidx.cpu(), want_gidx)
+    _assert_same_candidates(sync.find_sync(wf, count),
+                            sync.find_sync(wf.cpu(), count.cpu()))
+
+
+def test_sync_leading_shape_and_unaligned_view(dec):
+    """A (2, 2, ...) batch and a waterfall view that does not start on a
+    16-byte boundary (the wrapper stages it into an aligned copy)."""
+    rng = np.random.default_rng(21)
+    flat = torch.from_numpy(rng.integers(0, 256, 4 * 92 * 1024 + 1,
+                                         dtype=np.uint8)).cuda()
+    wf = flat[1:].view(2, 2, 92, 2, 2, 256)
+    assert wf.data_ptr() % 16
+    v1, gidx = sync.sync_survivors(wf, dec.sync_count)
+    want = sync.chunk_survivors(sync.sync_scores_plain(wf.cpu(),
+                                                       dec.sync_count.cpu()))
+    assert v1.shape == (2, 2, sync.NUM_SURVIVORS)
+    assert torch.equal(v1.cpu(), want[0]) and torch.equal(gidx.cpu(), want[1])
 
 
 @pytest.mark.parametrize("dtype", [torch.int64, torch.int32, "mixed"])
@@ -126,6 +161,9 @@ def test_llr_ragged_and_out_of_window(dec, dtype):
 
 
 def test_bp_ragged_batch_shape_and_posterior(dec):
+    """A (2, 31, 174) batch at 0, 1, 2, 7 and 20 iterations: with the
+    posterior every output, and without it (early exit) the hard bits and
+    errors, equal the plain version's."""
     rng = np.random.default_rng(4)
     rows = []
     for t in range(2 * 31):
@@ -137,13 +175,46 @@ def test_bp_ragged_batch_shape_and_posterior(dec):
     x = torch.from_numpy(np.stack(rows).astype(np.float32)
                          .reshape(2, 31, 174) * 2.0).cuda()
     graph = (dec.ldpc_edge_var, dec.ldpc_edge_slot, dec.ldpc_slot_edge)
-    for post in (False, True):
-        got = ldpc.bp_decode(x, *graph, 20, post)
-        ref = ldpc.bp_decode_plain(x, *graph, 20, post)
+    for iters in (0, 1, 2, 7, 20):
+        ref = ldpc.bp_decode_plain(x, *graph, iters, True)
+        got = ldpc.bp_decode(x, *graph, iters, True)
+        early = ldpc.bp_decode(x, *graph, iters)
         assert got[0].shape == (2, 31, 174) and got[1].shape == (2, 31)
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
+        assert torch.equal(early[0], ref[0])
+        assert torch.equal(early[1], ref[1])
     assert int((got[1] == 0).sum()) >= 10
+
+
+def _bp_rows(n, seed):
+    rng = np.random.default_rng(seed)
+    rows = []
+    for t in range(n):
+        if t % 3 == 2:
+            rows.append(rng.normal(0, 2.0, 174))
+        else:
+            cw = ldpc_encode(add_crc(rng.integers(0, 2, 77).astype(np.uint8)))
+            rows.append((2.0 * cw - 1.0) * [1.5, 0.8][t % 2]
+                        + rng.normal(0, 1.0, 174))
+    x = np.stack(rows).astype(np.float32) * 2.0
+    x[1::4, :30] = 0.0        # exact zeros, as out-of-window symbols give
+    return x
+
+
+@pytest.mark.parametrize("n", [1, 5, 97, 7681])
+def test_bp_every_row_with_and_without_posterior(dec, n):
+    """Hard bits and error counts equal the plain version's on every row,
+    with the posterior (all iterations) and without it (early exit), and
+    the posterior is bit-equal."""
+    x = torch.from_numpy(_bp_rows(n, n)).cuda()
+    graph = (dec.ldpc_edge_var, dec.ldpc_edge_slot, dec.ldpc_slot_edge)
+    h_p, e_p, p_p = ldpc.bp_decode_plain(x, *graph, 20, True)
+    h_k, e_k, p_k = ldpc.bp_decode(x, *graph, 20, True)
+    h_e, e_e = ldpc.bp_decode(x, *graph, 20)
+    for h, e in ((h_k, e_k), (h_e, e_e)):
+        assert torch.equal(h, h_p) and torch.equal(e, e_p)
+    assert torch.equal(p_k, p_p)
 
 
 def test_decode_window_cuda_equals_cpu(dec):

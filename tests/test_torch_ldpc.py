@@ -72,6 +72,24 @@ def test_bp_without_posterior_and_batch_shape(rows, port_out):
     assert np.array_equal(e.numpy().reshape(64), port_out[1])
 
 
+def test_bp_early_exit_matches_fixed_iterations(rows):
+    """csrc/ldpc.cu stops a codeword (when no posterior is asked for) at
+    its first iteration whose best error count is 0. A plain BP that
+    freezes each row there gives the fixed-20 hard bits and errors:
+    best_err only drops on a strict '<', so nothing changes after it."""
+    x = torch.from_numpy(rows)
+    h20, e20 = ldpc.bp_decode_plain(x, *GRAPH, 20)
+    hard, errors = h20.clone(), e20.clone()
+    stop_at = np.full(len(rows), 20)
+    for it in range(19, 0, -1):
+        h, e = ldpc.bp_decode_plain(x, *GRAPH, it)
+        stop = e == 0
+        hard[stop], errors[stop] = h[stop], e[stop]
+        stop_at[stop.numpy()] = it
+    assert torch.equal(hard, h20) and torch.equal(errors, e20)
+    assert (stop_at[e20.numpy() == 0] < 10).sum() >= 14
+
+
 def test_bp_decodes_clean_codeword():
     rng = np.random.default_rng(5)
     msg = rng.integers(0, 2, 91).astype(np.uint8)
