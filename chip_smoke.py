@@ -31,7 +31,11 @@ failure exits non-zero:
               hard bits and errors equal on every row, the posterior
               bit-equal; a profiler pass over one tone_llrs_cuda call
               shows one kernel launch and no host->device copy; and the
-              host->device copy of one int8 against one float32 window;
+              int8 decimator on aligned and unaligned rows, its
+              registers, shared memory, share of the bound and GB/s, the
+              streaming decimator across chunks of 48,000, 1 and 300
+              frames, and the host->device copy of one window as int8
+              (pageable and pinned) and as float32;
   4. main     the decode path through decode_window: the golden fixtures
               give exactly the single-pass oracle texts, the bench batch
               (bench.py:42-48) decodes 64/64 unbudgeted and at budget=1024,
@@ -49,7 +53,8 @@ failure exits non-zero:
   5. daemon   the port's CLI in-process, 4 bands x 2 synthetic windows with
               --pallas-ingest: CQ K1JT FN20 in every band's spots of both
               windows, every kernel's launch count from that run > 0, the
-              seconds per window by part; one band, one window with the
+              seconds per window by part and the decimate part per band;
+              one band, one window with the
               float --ingest device path gives the same texts, frequencies
               and DTs; then multipass: on the masked scene of
               tests/test_multipass.py one pass finds the strong signal
@@ -540,31 +545,50 @@ def check_bp(torch, dec, fwd_llrs):
 def check_decimate(torch, dev):
     """Phase 3, int8 ingest: the kernel against its plain version at one
     full band window (HISTORY + 750 x 48,000 int8 samples per component,
-    seed 11), hold rtol 1e-4, atol 1e-5; and the host->device copy of
-    that window as int8 (what --pallas-ingest uploads) and as float32
-    (what --ingest device uploads), from pageable numpy memory."""
+    seed 11), hold rtol 1e-4, atol 1e-5, on rows in the kernel's layout
+    (the streaming decimator's buffer) and on unaligned rows (full[1] of a
+    (2, n) tensor, which the wrapper copies first); the kernel's registers,
+    shared memory and blocks per SM, its share of the bound and achieved
+    GB/s; the streaming decimator on the card against the plain version
+    across chunks of 48,000, 1 and 300 frames, and its wall time per
+    window; and the host->device copy of one window as int8 from pageable
+    and from pinned memory, and as float32 (--ingest device) from
+    pageable memory."""
     from rtlsdr_ft8d_tpu_torch.ops import decimate, tables
 
-    n = decimate.HISTORY + decimate.R * 48_000
-    host8 = np.random.default_rng(11).integers(-128, 128, (2, n),
-                                               dtype=np.int8)
+    m = 48_000
+    n = decimate.HISTORY + decimate.R * m
+    rng = np.random.default_rng(11)
+    host8 = rng.integers(-128, 128, (2, n), dtype=np.int8)
     x8 = torch.from_numpy(host8).to(dev)
-    bank = torch.from_numpy(tables.polyphase_bank()).to(dev)
-    k_i, k_q = decimate.decimate_int8_cuda(x8[0], x8[1], bank)
-    p_i, p_q = decimate.decimate_int8_plain(x8[0], x8[1], bank)
-    err = max((k_i - p_i).abs().max().item(), (k_q - p_q).abs().max().item())
-    require(k_i.shape == (48_000,) and torch.allclose(
-        k_i, p_i, rtol=1e-4, atol=1e-5) and torch.allclose(
-        k_q, p_q, rtol=1e-4, atol=1e-5),
-        f"decimate: kernel and plain differ (max err {err})")
+    bank = decimate.DecimatorBank(device=dev)
+    lay = torch.zeros((2, -(-n // decimate.ALIGN) * decimate.ALIGN),
+                      dtype=torch.int8, device=dev)
+    lay[:, :n] = x8
+    ai, aq = lay[0, :n], lay[1, :n]
+    p_i, p_q = decimate.decimate_int8_plain(x8[0], x8[1], bank.f32)
+    require(x8[1].data_ptr() % 16 != 0, "x8[1] should be unaligned")
+    errs = {}
+    for name, (i, q, want) in (("aligned", (ai, aq, (p_i, p_q))),
+                               ("unaligned", (x8[1], x8[0], (p_q, p_i)))):
+        got = decimate.decimate_int8_cuda(i, q, bank)
+        errs[name] = max((a - b).abs().max().item()
+                         for a, b in zip(got, want))
+        require(got[0].shape == (m,) and all(
+            torch.allclose(a, b, rtol=1e-4, atol=1e-5)
+            for a, b in zip(got, want)),
+            f"decimate {name} rows: kernel and plain differ (max err "
+            f"{errs[name]})")
+    err = max(errs.values())
+
     def dec_kernel():
-        return decimate.decimate_int8_cuda(x8[0], x8[1], bank)
+        return decimate.decimate_int8_cuda(ai, aq, bank)
 
     # library yardstick: one strided convolution of both components'
     # float copies with the 6000-tap prototype (the bank's columns end to
     # end), cuDNN's TF32 off; the port never calls it
     xf = (x8.to(torch.float32) / 128.0)[:, None, :]
-    taps = bank.t().reshape(1, 1, -1).contiguous()
+    taps = bank.f32.t().reshape(1, 1, -1).contiguous()
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -572,28 +596,76 @@ def check_decimate(torch, dev):
             xf, taps, stride=decimate.R))
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    m = k_i.shape[-1]
-    b_ms, b_by = bound(x8.numel() + 2 * m * 4 + bank.numel() * 4,
-                       2 * m * taps.numel() * 2)
+    nbytes = x8.numel() + 2 * m * 4 + bank.f32.numel() * 4
+    b_ms, b_by = bound(nbytes, 2 * m * taps.numel() * 2)
     rec = {
-        "max_abs_err": err, "ms": median_ms(torch, dec_kernel),
+        "max_abs_err": err, "max_abs_err_by_rows": errs,
+        "ms": median_ms(torch, dec_kernel),
         "plain_ms": median_ms(torch, lambda: decimate.decimate_int8_plain(
-            x8[0], x8[1], bank)),
+            x8[0], x8[1], bank.f32)),
         "library_ms": lib_ms,
         "device_ms": device_ms(torch, dec_kernel,
                                KERNEL_SYMBOLS["decimate"]),
-        "bound_ms": b_ms, "bound_by": b_by, "shape": f"n={n} x 2"}
+        "unaligned_ms": median_ms(torch, lambda: decimate.decimate_int8_cuda(
+            x8[1], x8[0], bank)),
+        "bound_ms": b_ms, "bound_by": b_by, "shape": f"n={n} x 2",
+        "kernel_info": decimate.kernel_info()}
+    rec["bound_share"] = b_ms / rec["device_ms"]
+    rec["achieved_gb_s"] = nbytes / rec["device_ms"] / 1e6
+
+    # the streaming decimator on the card against the plain version on
+    # the same [history, chunk], the history carried in numpy
+    stream = decimate.StreamingDecimatorInt8(tables.polyphase_bank(), dev)
+    hist = np.zeros((2, decimate.HISTORY), np.int8)
+    for frames in (48_000, 1, 300):
+        chunk = rng.integers(-128, 128, (2, frames * decimate.R),
+                             dtype=np.int8)
+        full = np.concatenate([hist, chunk], axis=1)
+        hist = full[:, -decimate.HISTORY:]
+        want = decimate.decimate_int8_plain(
+            *torch.from_numpy(full).to(dev), bank.f32)
+        got = stream.process(chunk[0], chunk[1])
+        s_err = max(float(np.abs(a - b.cpu().numpy()).max())
+                    for a, b in zip(got, want))
+        require(all(np.allclose(a, b.cpu().numpy(), rtol=1e-4, atol=1e-5)
+                    for a, b in zip(got, want)),
+                f"decimate: the streaming decimator differs from the plain "
+                f"version on a {frames}-frame chunk (max err {s_err})")
+        rec["max_abs_err"] = max(rec["max_abs_err"], s_err)
+    # a window through the pinned staging buffer, as the daemon's pop
+    # writes it: the wall time of process(), which ends synchronized
+    i_st, q_st = stream.staging(m * decimate.R)
+    i_st[:], q_st[:] = host8[0, decimate.HISTORY:], host8[1, decimate.HISTORY:]
+    times = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        stream.process(i_st, q_st)
+        times.append((time.perf_counter() - t0) * 1e3)
+    rec["stream_window_ms"] = statistics.median(times[1:])
+
     host32 = host8.astype(np.float32) / 128.0
+    pinned = torch.from_numpy(host8).pin_memory()
     rec["h2d_ms"] = {
         "int8": median_ms(torch, lambda: torch.from_numpy(host8).to(dev),
                           calls=3),
+        "int8_pinned": median_ms(torch, lambda: pinned.to(
+            dev, non_blocking=True), calls=3),
         "float32": median_ms(torch, lambda: torch.from_numpy(host32).to(dev),
                              calls=3)}
-    say("kernels", f"decimate n={n} x 2: max err {err:.3g}, "
-        f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}) vs plain "
-        f"{rec['plain_ms']:.3f} ms, F.conv1d {lib_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}); H2D of one "
-        f"window: int8 {rec['h2d_ms']['int8']:.3f} ms ({host8.nbytes} B), "
+    info = rec["kernel_info"]
+    say("kernels", f"decimate n={n} x 2: max err {errs['aligned']:.3g} "
+        f"(unaligned rows {errs['unaligned']:.3g}, streaming chunks of "
+        f"48000, 1, 300 frames held), {rec['ms']:.4f} ms (device "
+        f"{rec['device_ms']:.4f}; unaligned rows with the wrapper's copy "
+        f"{rec['unaligned_ms']:.4f}) vs plain {rec['plain_ms']:.3f} ms, "
+        f"F.conv1d {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}): "
+        f"{rec['bound_share']:.3f} of it, {rec['achieved_gb_s']:.0f} GB/s; "
+        f"{info['registers']} registers, {info['dynamic_shared_bytes']} B "
+        f"shared, {info['blocks_per_sm']} blocks/SM, "
+        f"{info['spill_bytes']} B spills; streaming window "
+        f"{rec['stream_window_ms']:.3f} ms wall; H2D of one window: int8 "
+        f"{rec['h2d_ms']['int8']:.3f} ms pageable, "
+        f"{rec['h2d_ms']['int8_pinned']:.3f} ms pinned ({host8.nbytes} B), "
         f"float32 {rec['h2d_ms']['float32']:.3f} ms ({host32.nbytes} B)")
     return rec
 
@@ -665,7 +737,8 @@ def run_daemon_path(torch, build):
     for w, p in enumerate(parts):
         say("daemon", f"window {w} seconds: " + ", ".join(
             f"{k} {v:.4f}" for k, v in sorted(p.items()))
-            + f", total {sum(p.values()):.4f}")
+            + f", total {sum(p.values()):.4f}; decimate (upload + kernel) "
+            f"per band {p['decimate'] / len(DAEMON_BANDS):.4f}")
 
     rc, out1, err1 = run_cli(bands[:2] + common + ["-n", "1", "--ingest",
                                                    "device"])

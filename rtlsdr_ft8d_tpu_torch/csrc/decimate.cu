@@ -8,157 +8,330 @@
 //   y[f, r] = sum_p x[f * 750 + p] * bank[p, r]      (8 phase dot products)
 //   out[m]  = (sum_r y[m + r, r]) * (1/128)
 //
-// computed, not carried over block by block: the Pallas kernel's 768-lane
-// frame padding, (8, tile/8) output blocks and tile-multiple M are Mosaic
-// constraints, so here M is any count >= 1 and rows any count.
-//
-// Design: one launch covers I and Q (blockIdx.z) of every row
-// (blockIdx.y). A block owns kOut outputs and computes y once for each of
-// the kOut + 7 frames they need (7 frames of halo); the 750 x 8 bank sits
-// in shared memory (24 KB) as two float4 arrays, phases 0-3 and 4-7, so
-// that consecutive lanes read consecutive 16-byte words. A warp takes 4
-// frames at a time: lanes stride over the 750 samples with byte loads (a
-// frame starts at byte f * 750, only 2-byte aligned, so no wider vector
-// load is issued at a frame start), convert int8 -> float, and each bank
-// read feeds the 4 frames' 32 sums; a 31-shuffle reduce-scatter leaves
-// lane l with sum l = (frame l / 8, phase l % 8) for the shared y tile.
-// Then each thread sums one output's diagonal. Every input byte is read
-// once, apart from the halo (7 / 135 of the span).
-//
 // What bounds it: per band-window (M = 48,000, n = 36,005,250 per
-// component) it reads 72 MB of int8 and does 2 x 36 M x 8 FMAs. One warp
-// per frame (the first version) read 32 bytes of bank per sample from
-// shared memory, 2.4 GB per window with 2-way bank conflicts, and took
-// ~0.2 ms on an H100; 4 frames per bank read and conflict-free reads cut
-// that traffic 8-fold, leaving the FMAs, the loads and HBM (72 MB, ~21 us
-// at 3.35 TB/s). This version takes ~0.1 ms on an H100 (700 W limit),
-// 720 GB/s: each warp load moves 32 single bytes, too few bytes in flight
-// for HBM rate; staging the span with 16-byte loads into shared memory is
-// the next step. End to end, the host->device copy of the window bounds
-// the ingest: 72 MB of int8 against 288 MB for the float32 path, which is
-// why the int8 path exists (decimate_pallas.py:1-21). The streaming
-// history (the last 5,250 samples of [history, chunk]) is kept by the
-// caller, before any padding.
+// component) the function reads 72 MB of int8: 21.6 us at 3.35 TB/s. The
+// previous version (one block per 128 outputs) took ~0.1 ms on an H100:
+// byte loads from HBM (32 bytes per warp load), an I2F conversion per
+// sample (16 per clock per SM), 8 FP32 FMAs per sample, the 24 KB bank
+// reloaded by each of 750 blocks and 7 frames of halo per block. This
+// design takes each of those off the path:
+//
+// - Persistent blocks, a carried halo. The grid is what fits on the card
+//   at once (2 blocks per SM). A block owns a contiguous range of outputs
+//   of one (row, component), starting at a multiple of 8 outputs, and
+//   walks it in tiles of 64 frames (48,000 bytes). y of the frames it has
+//   computed stays in a 128-frame ring in shared memory, so a tile's
+//   outputs take the previous tile's last 7 frames from there: the halo
+//   is read once per block, not once per tile.
+// - TMA staging. One thread copies each tile's span into a 2-stage ring
+//   in shared memory with one 1-D bulk copy (cp.async.bulk, completing on
+//   an mbarrier), a tile ahead of the one in use. Frame starts are only
+//   2-byte aligned, but tile starts are multiples of 8 frames (6,000 =
+//   375 x 16 bytes), so a row at a 16-byte-aligned stride gives aligned
+//   copies; the wrapper (ops/decimate.py) keeps rows so, readable to the
+//   next multiple of 16 past their end, and copies any other input into
+//   that layout first.
+// - Exact conversion without I2F. Two int8 samples become a float16 pair
+//   by one byte permute: 0x64XX is the float16 1024 + XX, and with
+//   XX = b ^ 0x80 = b + 128 one HSUB2 of 1152 leaves b exactly.
+// - The product on the tensor cores: mma.sync m16n8k16, float16 in,
+//   float32 accumulate. A is 16 frames x 16 samples straight from the
+//   stage (int8 is exact in float16), n = 8 is the 8 phases, and K = 750
+//   is padded to 752 with two zero bank rows (the two samples past a frame
+//   are the next frame's, times 0). B is the bank split in two float16
+//   parts, hi + lo = 2^s bank to ~22 bits (tables.polyphase_bank_split):
+//   two MMAs per A fragment, products exact in float32, 2^-s back in the
+//   epilogue. The 8 warps split K (6 steps of 16 each), so each warp holds
+//   its B fragments in 24 registers for the whole kernel; their 64 x 8
+//   partial sums meet in warp order in the stage just consumed. wgmma
+//   would buy nothing: its tiles are 64 rows by n >= 8 from a shared
+//   layout that 750-byte frames cannot give, and the tensor-core work is
+//   ~2.3 GFLOP per band-window, a few microseconds at mma.sync's rate.
+// - The epilogue sums each output's diagonal of 8 ring entries, scales by
+//   2^-(s+7) (exact) and stores coalesced.
+//
+// Known cost: an A fragment load reads 2 bytes at a frame stride of 750
+// bytes (110 mod 128), so fragment rows 0 and 7 meet in one bank: a 2-way
+// conflict on every A load. The streaming history (the last 5,250
+// samples of [history, chunk]) is kept by the caller, before any padding.
+#include <cuda_fp16.h>
+
+#include <cmath>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kR = 750;                  // decimation factor, frame length
+constexpr int kR = 750;                          // decimation factor, frame
 constexpr int kPhases = 8;
-constexpr int kHistory = (kPhases - 1) * kR;   // 5250
-constexpr int kOut = 128;                // outputs per block
-constexpr int kFrames = kOut + kPhases - 1;    // frames a block reads
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kYStride = kPhases + 1;    // diagonal reads without conflicts
-constexpr int kPerLane = (kR + 31) / 32; // 24 samples of a frame per lane
-constexpr int kGroup = 4;                // frames a warp sums at once
-constexpr int kGroups = (kFrames + kGroup - 1) / kGroup;
-static_assert(kGroup * kPhases == 32, "one sum per lane after the reduce");
+constexpr int kHistory = (kPhases - 1) * kR;     // 5250
+constexpr int kTile = 64;                        // frames per tile
+constexpr int kTileBytes = kTile * kR;           // 48,000
+constexpr int kStageBytes = kTileBytes + 128;    // + the padded K's overread
+constexpr int kStages = 2;
+constexpr int kKSteps = 47;                      // K = 752 = 47 x 16
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kStepsPerWarp = (kKSteps + kWarps - 1) / kWarps;   // 6
+constexpr int kGroups = kTile / 16;              // MMA row groups of a tile
+constexpr int kAcc = kGroups * 4;                // accumulators per lane
+constexpr int kRing = 128;                       // frames of y kept
+constexpr int kYStride = kPhases + 1;            // diagonal reads, no conflicts
+constexpr int kAlign = 8;                        // range starts, in outputs
+constexpr int kMinChunk = kTile - kPhases;       // 56: one tile's outputs
+static_assert(kTileBytes % 16 == 0 && kAlign * kR % 16 == 0,
+              "bulk copies move multiples of 16 bytes from 16-byte starts");
+static_assert(kWarps * kAcc * 32 * 4 <= kTileBytes,
+              "the warps' partial sums fit in a stage");
+static_assert(kRing >= 2 * kTile && (kRing & (kRing - 1)) == 0,
+              "a tile's writes never meet the previous tile's reads");
 
-// One step of the warp's reduce-scatter: a lane keeps the half of its O * 2
-// sums whose index bit O matches its own lane bit and sends the other half.
-// O is a template argument so that every index into acc is a constant and
-// acc stays in registers.
-template <int O>
-__device__ __forceinline__ void reduce_step(float* acc, int lane) {
-  const bool upper = (lane & O) != 0;
-#pragma unroll
-  for (int i = 0; i < O; ++i) {
-    const float send = upper ? acc[i] : acc[i + O];
-    const float keep = upper ? acc[i + O] : acc[i];
-    acc[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
-  }
+struct Smem {
+  unsigned char stage[kStages][kStageBytes];     // 16-byte aligned copies
+  float y[kRing * kYStride];                     // y[frame % kRing][phase]
+  unsigned long long full[kStages];              // mbarriers
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Two int8 samples (the low 16 bits of v, lower address in the low byte)
+// -> a float16 pair, exactly.
+__device__ __forceinline__ uint32_t i8x2_to_f16x2(uint32_t v) {
+  uint32_t biased = __byte_perm(v ^ 0x8080u, 0x64646464u, 0x4140);
+  __half2 h = *reinterpret_cast<__half2*>(&biased);
+  h = __hsub2(h, __half2half2(__ushort_as_half(0x6480)));    // 1152
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ uint32_t ld_u16(const unsigned char* p) {
+  return *reinterpret_cast<const unsigned short*>(p);
+}
+
+// c += a (16 x 16, row) * b (16 x 8, col), float16 in, float32 accumulate.
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void wait_parity(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// bank: (47, 32) uint4, the B fragments of K step ks for lane l at
+// [ks * 32 + l]: hi's two registers, then lo's.
+__global__ void __launch_bounds__(kThreads, 2)
 decimate_kernel(const int8_t* __restrict__ i8, const int8_t* __restrict__ q8,
-                const float* __restrict__ bank, float* __restrict__ out_i,
-                float* __restrict__ out_q, int n, int m) {
-  __shared__ float4 bank_lo[kR], bank_hi[kR];   // bank[p][0..3], [4..7]
-  __shared__ float y[kFrames * kYStride];
+                long long stride, const uint4* __restrict__ bank,
+                float* __restrict__ out_i, float* __restrict__ out_q, int m,
+                int chunk, int chunks, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
 
-  const int row = blockIdx.y;
-  const int8_t* x = (blockIdx.z == 0 ? i8 : q8)
-                    + static_cast<size_t>(row) * n;
-  float* out = (blockIdx.z == 0 ? out_i : out_q)
-               + static_cast<size_t>(row) * m;
-  const int m0 = blockIdx.x * kOut;
-  const int nf = m + kPhases - 1;        // frames in the row
+  const int unit = blockIdx.x / chunks;          // row * 2 + component
+  const int m0 = (blockIdx.x % chunks) * chunk;  // this block's outputs
+  const int m1 = min(m, m0 + chunk);
+  const int row = unit >> 1;
+  const int8_t* x = ((unit & 1) ? q8 : i8) + row * stride;
+  float* out = ((unit & 1) ? out_q : out_i) + static_cast<size_t>(row) * m;
+  const long long n = kHistory + static_cast<long long>(kR) * m;
+  const int tiles = (m1 - m0 + kPhases - 1 + kTile - 1) / kTile;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  const float4* bank4 = reinterpret_cast<const float4*>(bank);
-  for (int t = threadIdx.x; t < kR; t += kThreads) {
-    bank_lo[t] = bank4[2 * t];
-    bank_hi[t] = bank4[2 * t + 1];
+  // tile t's frames into stage t % kStages; the last tile's copy stops at
+  // the row's end rounded up to 16 bytes, which the wrapper keeps readable
+  auto stage_tile = [&](int t) {
+    const long long start = static_cast<long long>(m0 + t * kTile) * kR;
+    const long long rest = (n - start + 15) & ~15LL;
+    const int s = t % kStages;
+    bulk_load(smem_addr(sm.stage[s]), x + start,
+              static_cast<uint32_t>(rest < kTileBytes ? rest : kTileBytes),
+              smem_addr(&sm.full[s]));
+  };
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   :: "r"(smem_addr(&sm.full[s])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int t = 0; t < kStages && t < tiles; ++t) stage_tile(t);
+  }
+  // this warp's K steps warp * 6 .. warp * 6 + 5 (warp 7 has 5)
+  uint4 b[kStepsPerWarp];
+#pragma unroll
+  for (int j = 0; j < kStepsPerWarp; ++j) {
+    const int ks = warp * kStepsPerWarp + j;
+    b[j] = ks < kKSteps ? bank[ks * 32 + lane] : make_uint4(0, 0, 0, 0);
   }
   __syncthreads();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int g = warp; g < kGroups; g += kWarps) {
-    const int fl0 = g * kGroup;
-    if (m0 + fl0 >= nf) break;
-    // frames past the block's span or the row's end read as zeros
-    const int8_t* src[kGroup];
-    bool live[kGroup];
+  const int g = lane / 4, t4 = lane % 4;
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t % kStages;
+    const int f0 = m0 + t * kTile;               // the tile's first frame
+    wait_parity(smem_addr(&sm.full[s]), (t / kStages) & 1);
+
+    float acc[kAcc];
 #pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      live[j] = fl0 + j < kFrames && m0 + fl0 + j < nf;
-      src[j] = x + static_cast<size_t>(live[j] ? m0 + fl0 + j : 0) * kR;
-    }
-    float acc[kGroup * kPhases];
+    for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < kGroup * kPhases; ++i) acc[i] = 0.f;
+    for (int j = 0; j < kStepsPerWarp; ++j) {
+      const int ks = warp * kStepsPerWarp + j;
+      if (ks < kKSteps) {
+        // A rows g and g + 8 of each group, samples 2t, 2t+1 and +8, +9
+        const unsigned char* col = sm.stage[s] + g * kR + ks * 16 + 2 * t4;
 #pragma unroll
-    for (int k = 0; k < kPerLane; ++k) {
-      const int p = lane + 32 * k;
-      if (p < kR) {
-        const float4 b0 = bank_lo[p], b1 = bank_hi[p];
-#pragma unroll
-        for (int j = 0; j < kGroup; ++j) {
-          const float v = live[j] ? static_cast<float>(src[j][p]) : 0.f;
-          float* a = acc + j * kPhases;
-          a[0] += v * b0.x; a[1] += v * b0.y;
-          a[2] += v * b0.z; a[3] += v * b0.w;
-          a[4] += v * b1.x; a[5] += v * b1.y;
-          a[6] += v * b1.z; a[7] += v * b1.w;
+        for (int q = 0; q < kGroups; ++q) {
+          const unsigned char* r0 = col + q * 16 * kR;
+          const unsigned char* r8 = r0 + 8 * kR;
+          const uint32_t a[4] = {
+              i8x2_to_f16x2(ld_u16(r0)), i8x2_to_f16x2(ld_u16(r8)),
+              i8x2_to_f16x2(ld_u16(r0 + 8)), i8x2_to_f16x2(ld_u16(r8 + 8))};
+          mma16816(acc + 4 * q, a, b[j].x, b[j].y);    // hi
+          mma16816(acc + 4 * q, a, b[j].z, b[j].w);    // lo
         }
       }
     }
-    // reduce-scatter over the warp: lane l ends with the total of sum l
-    reduce_step<16>(acc, lane);
-    reduce_step<8>(acc, lane);
-    reduce_step<4>(acc, lane);
-    reduce_step<2>(acc, lane);
-    reduce_step<1>(acc, lane);
-    const int j = lane / kPhases, r = lane % kPhases;
-    if (fl0 + j < kFrames && m0 + fl0 + j < nf)
-      y[(fl0 + j) * kYStride + r] = acc[0];
-  }
-  __syncthreads();
-
-  for (int j = threadIdx.x; j < kOut; j += kThreads) {
-    if (m0 + j >= m) break;
-    float s = 0.f;
+    __syncthreads();                 // every warp is done reading stage s
+    float* red = reinterpret_cast<float*>(sm.stage[s]);
 #pragma unroll
-    for (int r = 0; r < kPhases; ++r) s += y[(j + r) * kYStride + r];
-    out[m0 + j] = s * (1.0f / 128.0f);
+    for (int i = 0; i < kAcc; ++i) red[(warp * kAcc + i) * 32 + lane] = acc[i];
+    __syncthreads();
+    // accumulator i of lane l is y[frame 16 (i / 4) + l / 4 + 8 (i / 2 % 2),
+    // phase 2 (l % 4) + i % 2]: the warps' partials summed in warp order
+    for (int e = tid; e < kAcc * 32; e += kThreads) {
+      const int i = e / 32, l = e % 32;
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) v += red[(w * kAcc + i) * 32 + l];
+      const int f = f0 + (i / 4) * 16 + l / 4 + ((i & 2) ? 8 : 0);
+      sm.y[(f % kRing) * kYStride + 2 * (l % 4) + (i & 1)] = v;
+    }
+    __syncthreads();
+    if (tid == 0 && t + kStages < tiles) {
+      // the stage's last generic accesses before the async proxy's write
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      stage_tile(t + kStages);
+    }
+    // the outputs whose last frame is in this tile: f0 - 7 .. f0 + 56
+    if (tid < kTile) {
+      const int mo = f0 - (kPhases - 1) + tid;
+      if (mo >= m0 && mo < m1) {
+        float v = 0.f;
+#pragma unroll
+        for (int r = 0; r < kPhases; ++r)
+          v += sm.y[((mo + r) % kRing) * kYStride + r];
+        out[mo] = v * scale;
+      }
+    }
   }
+}
+
+// Resident blocks on the current device (SMs x blocks per SM), once per
+// device; sets the kernel's dynamic shared memory size on the way.
+int grid_slots(int* slots) {
+  static int cached[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 64 && cached[dev] > 0) {
+    *slots = cached[dev];
+    return 0;
+  }
+  const int smem = static_cast<int>(sizeof(Smem));
+  err = cudaFuncSetAttribute(decimate_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  int sms = 0, per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, decimate_kernel, kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *slots = sms * per_sm;
+  if (dev < 64) cached[dev] = *slots;
+  return 0;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
 
-// i8, q8: (rows, n) int8 with n = 5250 + 750 M, M >= 1; bank: (750, 8)
-// f32, 16-byte aligned; out_i, out_q: (rows, M) f32.
+// i8, q8: rows of n = 5250 + 750 M int8 samples (M >= 1) at `stride`
+// bytes, a multiple of 16 >= n, 16-byte aligned, each row readable to its
+// end rounded up to 16 bytes; bank: (47, 32, 4) int32 B fragments of the
+// split bank (ops/decimate.bank_fragments), 16-byte aligned; shift: its s;
+// out_i, out_q: (rows, M) f32.
 FT8_EXPORT int ft8_decimate_int8(const int8_t* i8, const int8_t* q8,
-                                 const float* bank, float* out_i,
-                                 float* out_q, int rows, int n,
-                                 void* stream) {
-  if (rows <= 0 || rows > 65535 || n < kHistory + kR
-      || (n - kHistory) % kR != 0)
+                                 const void* bank, float* out_i,
+                                 float* out_q, int rows, int n, int stride,
+                                 int shift, void* stream) {
+  if (rows <= 0 || n < kHistory + kR || (n - kHistory) % kR != 0
+      || stride < n || stride % 16 != 0)
     return cudaErrorInvalidValue;
+  if (!aligned16(i8) || !aligned16(q8) || !aligned16(bank))
+    return cudaErrorMisalignedAddress;
+  int slots = 0;
+  const int err = grid_slots(&slots);
+  if (err != 0) return err;
   const int m = (n - kHistory) / kR;
-  const dim3 grid((m + kOut - 1) / kOut, rows, 2);
-  decimate_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      i8, q8, bank, out_i, out_q, n, m);
+  // split each (row, component) so that the grid about fills the card
+  const long long units = 2LL * rows;
+  const long long per = (units * m + slots - 1) / slots;
+  long long chunk = (per + kAlign - 1) / kAlign * kAlign;
+  if (chunk < kMinChunk) chunk = kMinChunk;
+  const long long chunks = (m + chunk - 1) / chunk;
+  if (units * chunks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  decimate_kernel<<<static_cast<unsigned>(units * chunks), kThreads,
+                    sizeof(Smem), static_cast<cudaStream_t>(stream)>>>(
+      i8, q8, stride, static_cast<const uint4*>(bank), out_i, out_q, m,
+      static_cast<int>(chunk), static_cast<int>(chunks),
+      std::ldexp(1.0f, -(shift + 7)));
   return static_cast<int>(cudaGetLastError());
+}
+
+// info[0..4]: registers per thread, static and dynamic shared bytes per
+// block, resident blocks per SM, local (spill) bytes per thread.
+FT8_EXPORT int ft8_decimate_info(int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, decimate_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int slots = 0, sms = 0, dev = 0;
+  int rc = grid_slots(&slots);
+  if (rc != 0) return rc;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.sharedSizeBytes);
+  info[2] = static_cast<int>(sizeof(Smem));
+  info[3] = slots / sms;
+  info[4] = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }

@@ -120,14 +120,25 @@ class WindowProcessor:
         self.decimator = _make_decimator(self.args)
         self._int8_decimator = None
 
+    def _int8(self):
+        if self._int8_decimator is None:
+            self._int8_decimator = StreamingDecimatorInt8(
+                polyphase_bank(), self.args.backend)
+        return self._int8_decimator
+
+    def pop_buffers(self, i8: np.ndarray, q8: np.ndarray):
+        """Where the ring pop writes one full-rate window: with the int8
+        ingest, the decimator's staging buffer (pinned on the card, so the
+        upload needs no host copy); else the daemon's own (i8, q8)."""
+        if not self.args.pallas_ingest:
+            return i8, q8
+        return self._int8().staging(i8.shape[0])
+
     def _decimate(self, i8: np.ndarray, q8: np.ndarray):
         n = (i8.shape[0] // R) * R
         with self.timer.stage("decimate"):
             if self.args.pallas_ingest:
-                if self._int8_decimator is None:
-                    self._int8_decimator = StreamingDecimatorInt8(
-                        polyphase_bank(), self.args.backend)
-                return self._int8_decimator.process(i8[:n], q8[:n])
+                return self._int8().process(i8[:n], q8[:n])
             return self.decimator.process(
                 i8[:n].astype(np.float32) / 128.0,
                 q8[:n].astype(np.float32) / 128.0)
@@ -288,18 +299,21 @@ def run_daemon(args) -> int:
                            and _now() < deadline and not stop):
                         _sleep(0.1)
                 with timer.stage("pop"):
+                    # the int8 decimator's set-up in the first window (its
+                    # pinned staging buffer) is timed with the pop it serves
+                    pop_i, pop_q = proc.pop_buffers(i8, q8)
                     got = lib.ingest_ring_pop(
                         ring,
-                        i8.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
-                        q8.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+                        pop_i.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+                        pop_q.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
                         FULLRATE_WINDOW)
                 if got < FULLRATE_WINDOW:
                     short = got
                     break
                 if multiband:
-                    basebands.append(proc.decimate_fullrate(i8, q8))
+                    basebands.append(proc.decimate_fullrate(pop_i, pop_q))
                 else:
-                    proc.process_fullrate(i8, q8)
+                    proc.process_fullrate(pop_i, pop_q)
             if stop:
                 break
             if short is not None:

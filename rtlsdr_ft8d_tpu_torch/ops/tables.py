@@ -27,8 +27,10 @@ The JAX package has no FFT, so wf_twiddle has no JAX counterpart; the
 tests hold it to numpy's exp in float64 cast to float32.
 
 The ingest decimator's filter (rtlsdr_ft8d_tpu/ops/decimate.py:36-68) is
-built here too, by `polyphase_bank`; it is not a decode-graph buffer, so
-the decimators (ops/decimate.py) take it as an argument instead.
+built here too, by `polyphase_bank`, with `polyphase_bank_split`, its
+two-part float16 form for the int8 kernel's tensor-core product; it is
+not a decode-graph buffer, so the decimators (ops/decimate.py) take it
+as an argument instead.
 """
 
 import functools
@@ -162,6 +164,25 @@ def polyphase_bank() -> np.ndarray:
     h = filter_taps()[::-1].copy()
     return np.ascontiguousarray(
         h.reshape(DECIMATE_PHASES, DOWNSAMPLING).T).astype(np.float32)
+
+
+DECIMATE_K = 752            # the bank's rows padded to 47 steps of 16
+
+
+def polyphase_bank_split(bank=None):
+    """The int8 kernel's bank (csrc/decimate.cu): float16 (hi, lo), each
+    (752, 8) with two zero rows after the 750 taps, and the shift s with
+    hi + lo = 2^s * bank to about 22 bits. s puts the largest tap in
+    [2^13, 2^14): hi keeps it far inside float16's range, and lo, at most
+    half a unit of hi's last place, keeps 11 more bits."""
+    bank = polyphase_bank() if bank is None else np.asarray(bank, np.float32)
+    _, e = np.frexp(np.abs(bank).max())       # max |tap| < 2^e
+    shift = 14 - int(e)
+    scaled = np.zeros((DECIMATE_K, DECIMATE_PHASES), np.float64)
+    scaled[:bank.shape[0]] = np.ldexp(bank.astype(np.float64), shift)
+    hi = scaled.astype(np.float16)
+    lo = (scaled - hi.astype(np.float64)).astype(np.float16)
+    return hi, lo, shift
 
 
 def reference_arrays() -> dict[str, np.ndarray]:

@@ -11,7 +11,8 @@ rows whose length is not a multiple of 4 (the waterfall's scalar loads),
 leading batch shapes, int32 and int64 candidate fields, out-of-window
 candidates, the fused sync survivors on ties and on an unaligned view,
 BP's early exit at several iteration counts, operand checks and the
-launch counters. Holds as in
+launch counters; the int8 decimator on unaligned rows, on blocks of many
+tiles and on chunks shorter than its history. Holds as in
 chip_smoke.py: waterfall <= 1 step on < 0.1% of cells, sync / s2 / BP
 bit-exact, LLRs within 1e-5, the int8 decimator within rtol 1e-4,
 atol 1e-5 of its plain version.
@@ -228,19 +229,21 @@ def test_decode_window_cuda_equals_cpu(dec):
         [(d.text, d.freq_hz, d.time_sec, d.score) for d in on_cpu]
 
 
-@pytest.mark.parametrize("m,rows", [(1, 1), (48_001, 1), (130, 3)])
+@pytest.mark.parametrize("m,rows", [(1, 1), (48_001, 1), (130, 3),
+                                    (48_000, 5)])
 def test_decimate_int8_ragged(dec, m, rows):
-    """M = 1, M = 48,001 (not a multiple of the 128-output block) and
-    several rows against the plain version on the card."""
+    """M = 1, M = 48,001 (not a multiple of the 8-output range step),
+    several rows, and 5 rows of a full window (blocks of many tiles each)
+    against the plain version on the card."""
     rng = np.random.default_rng(m)
     n = decimate.HISTORY + m * decimate.R
     i8, q8 = (torch.from_numpy(rng.integers(-128, 128, (rows, n))
                                .astype(np.int8)).cuda() for _ in range(2))
-    bank = torch.from_numpy(tables.polyphase_bank()).cuda()
+    bank = decimate.DecimatorBank()
     before = decimate.KERNEL.launches
     got = decimate.decimate_int8(i8, q8, bank)
     assert decimate.KERNEL.launches == before + 1
-    ref = decimate.decimate_int8_plain(i8, q8, bank)
+    ref = decimate.decimate_int8_plain(i8, q8, bank.f32)
     for a, b in zip(got, ref):
         assert a.shape == (rows, m)
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
@@ -249,15 +252,47 @@ def test_decimate_int8_ragged(dec, m, rows):
 
 
 def test_streaming_int8_history_across_calls(dec):
-    """Three chunks through StreamingDecimatorInt8 on the card equal the
+    """Chunks through StreamingDecimatorInt8 on the card equal the
     same chunks through it on the CPU (plain version): the int8 history
     carried on the device is the tail of [history, chunk]."""
     rng = np.random.default_rng(9)
     bank = tables.polyphase_bank()
     on_card = decimate.StreamingDecimatorInt8(bank, "cuda")
     on_cpu = decimate.StreamingDecimatorInt8(bank, "cpu")
-    for m in (64, 1, 300):
+    # chunks of 1-6 frames are shorter than the 7-frame history, which
+    # then overlaps the carried tail; odd calls write the chunk into the
+    # pinned staging buffer, as the daemon's ring pop does
+    for call, m in enumerate((64, 1, 300, 3, 6, 2, 5)):
         i8, q8 = (rng.integers(-128, 128, m * decimate.R).astype(np.int8)
                   for _ in range(2))
-        for a, b in zip(on_card.process(i8, q8), on_cpu.process(i8, q8)):
+        want = on_cpu.process(i8, q8)
+        if call % 2:
+            i_st, q_st = on_card.staging(m * decimate.R)
+            i_st[:], q_st[:] = i8, q8
+            i8, q8 = i_st, q_st
+        for a, b in zip(on_card.process(i8, q8), want):
             np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_decimate_int8_unaligned_view(dec, monkeypatch):
+    """full[1] of a (2, n) tensor starts 2 bytes past a 16-byte boundary:
+    the wrapper copies it into the kernel's layout. A CUDA input never
+    reaches the plain version: one launch per call."""
+    bank = decimate.DecimatorBank()
+    rng = np.random.default_rng(12)
+    n = decimate.HISTORY + 48_000 * decimate.R
+    full = torch.from_numpy(rng.integers(-128, 128, (2, n))
+                            .astype(np.int8)).cuda()
+    assert full[1].data_ptr() % 16
+    ref = decimate.decimate_int8_plain(full[1], full[0], bank.f32)
+
+    def refuse(*args):
+        raise AssertionError("a CUDA input reached the plain version")
+
+    monkeypatch.setattr(decimate, "decimate_int8_plain", refuse)
+    before = decimate.KERNEL.launches
+    got = decimate.decimate_int8(full[1], full[0], bank)
+    assert decimate.KERNEL.launches == before + 1
+    for a, b in zip(got, ref):
+        assert a.shape == (48_000,)
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from rtlsdr_ft8d_tpu.ops import decimate as jdec
 from rtlsdr_ft8d_tpu.ops import ldpc as jldpc
 from rtlsdr_ft8d_tpu.ops import sync as jsync
 from rtlsdr_ft8d_tpu.ops import waterfall as jwf
@@ -114,6 +115,23 @@ def test_cpu_tensors_never_launch_a_kernel():
         dec(x, y)
         dec(x, y, budget=64)
     i8, q8 = rng.integers(-128, 128, (2, 4 * decimate.R), np.int8)
-    decimate.StreamingDecimatorInt8(tables.polyphase_bank()).process(i8, q8)
+    decimate.StreamingDecimatorInt8(tables.polyphase_bank(),
+                                    "cpu").process(i8, q8)
     assert {n: k.launches for n, k in build.KERNELS.items()} == \
         {"bp": 0, "decimate": 0, "llr": 0, "sync": 0, "waterfall": 0}
+
+
+def test_decimator_bank_equals_jax_and_its_split_keeps_22_bits():
+    """The f32 bank is JAX's bit for bit; the int8 kernel's float16 split
+    gives it back to within 2^-21 of its largest tap, with two zero rows
+    of padding."""
+    bank = tables.polyphase_bank()
+    np.testing.assert_array_equal(bank, jdec._polyphase_bank())
+    hi, lo, shift = tables.polyphase_bank_split()
+    assert hi.dtype == lo.dtype == np.float16
+    assert hi.shape == lo.shape == (tables.DECIMATE_K, 8)
+    assert not hi[750:].any() and not lo[750:].any()
+    top = np.abs(bank).max()
+    assert 2.0 ** 13 <= top * 2.0 ** shift < 2.0 ** 14
+    back = np.ldexp(hi[:750].astype(np.float64) + lo[:750], -shift)
+    assert np.abs(back - bank).max() <= top * 2.0 ** -21
