@@ -167,6 +167,7 @@ class WindowProcessor:
             self._elastic = elastic or ElasticDecoder(
                 local_devices(args.backend), decoder=decoder)
         self.windows_done = 0
+        self.epoch = None              # of the last window emitted
         self.timer = StageTimer()      # run_daemon swaps in each window's
 
     def reset_streams(self):
@@ -193,6 +194,19 @@ class WindowProcessor:
         if not self.args.pallas_ingest:
             return i8, q8
         return self._int8().staging(i8.shape[0])
+
+    def pop_window(self, lib, ring, i8: np.ndarray, q8: np.ndarray):
+        """Pop one full-rate window of i8.shape[0] samples from the native
+        ring into `pop_buffers`, timed as the window's "pop" part:
+        (pop_i, pop_q, the samples popped). The int8 decimator's set-up
+        in the first window (its pinned staging buffer) is timed with the
+        pop it serves."""
+        ptr = ctypes.POINTER(ctypes.c_int8)
+        with self.timer.stage("pop"):
+            pop_i, pop_q = self.pop_buffers(i8, q8)
+            got = lib.ingest_ring_pop(ring, pop_i.ctypes.data_as(ptr),
+                                      pop_q.ctypes.data_as(ptr), i8.shape[0])
+        return pop_i, pop_q, got
 
     def _decimate(self, i8: np.ndarray, q8: np.ndarray):
         n = (i8.shape[0] // R) * R
@@ -221,7 +235,8 @@ class WindowProcessor:
         if budget is None and len(self.wb_channels) >= 512:
             budget = 4096
         with self.timer.stage("channelize"):
-            i_ch, q_ch = self.channelizer.process(i8, q8)
+            with self.timer.stage("bank", device=self.channelizer.device):
+                i_ch, q_ch = self.channelizer.process(i8, q8)
             sel = torch.as_tensor(self.wb_channels, device=i_ch.device)
             i_b, q_b = i_ch.index_select(0, sel), q_ch.index_select(0, sel)
             if i_b.shape[1] < WINDOW:
@@ -231,16 +246,15 @@ class WindowProcessor:
             if i_b.is_cuda:        # the part's time is the device's
                 torch.cuda.synchronize(i_b.device)
         epoch = int(_now()) - SIGNAL_LENGTH_S + 1
-        t0 = time.time()
-        with self.timer.stage("decode"):
+        with self.timer.stage("decode") as part:
             if self._elastic is not None:
                 results, stats = self._decode_elastic(i_b, q_b, budget)
             else:
                 results, stats = decode_window(
                     (i_b, q_b), hashes=self.hashes, return_stats=True,
                     passes=self.args.multipass, budget=budget,
-                    decoder=self.decoder, **ap_options(self.args, self.qso))
-        decode_ms = (time.time() - t0) * 1000.0
+                    decoder=self.decoder, timer=self.timer,
+                    **ap_options(self.args, self.qso))
         per_channel = []
         for k, decodes in zip(self.wb_channels, results):
             for d in decodes:
@@ -249,7 +263,7 @@ class WindowProcessor:
         all_decodes = dedup_wideband(per_channel)
         if self.qso:
             self.qso.observe(all_decodes)
-        return self.emit(all_decodes, epoch, stats, decode_ms)
+        return self.emit(all_decodes, epoch, stats, part.ms)
 
     def _decode_elastic(self, i_b, q_b, budget):
         """The wideband decode through ElasticDecoder (--elastic;
@@ -293,6 +307,7 @@ class WindowProcessor:
     def emit(self, decodes, epoch, stats=None, decode_ms=0.0,
              i_bb=None, q_bb=None):
         """Print/report/save one window's results."""
+        self.epoch = epoch
         with self.timer.stage("spots"):
             when = datetime.fromtimestamp(epoch, timezone.utc)
             if stats is not None and self.args.stats:
@@ -312,16 +327,14 @@ class WindowProcessor:
     def process_baseband(self, i_bb: np.ndarray, q_bb: np.ndarray):
         i_bb, q_bb = _pad_window(i_bb, q_bb)
         epoch = int(_now()) - SIGNAL_LENGTH_S + 1
-        t0 = time.time()
-        with self.timer.stage("decode"):
+        with self.timer.stage("decode") as part:
             decodes, stats = decode_window(
                 (i_bb, q_bb), hashes=self.hashes, return_stats=True,
                 passes=self.args.multipass, decoder=self.decoder,
-                **ap_options(self.args, self.qso))
+                timer=self.timer, **ap_options(self.args, self.qso))
         if self.qso:
             self.qso.observe(decodes)
-        return self.emit(decodes, epoch, stats, (time.time() - t0) * 1000.0,
-                         i_bb, q_bb)
+        return self.emit(decodes, epoch, stats, part.ms, i_bb, q_bb)
 
 
 def ap_options(args, qso: QsoTracker | None) -> dict:
@@ -344,7 +357,9 @@ def run_daemon(args) -> int:
     table; with --wideband each band decodes its own channels. With
     --stats, each window also logs its host-clock seconds by part (ring
     pop, upload + decimation or channelization, decode, spots) as one
-    JSON record.
+    JSON record, and a second with the window's spans (host and device
+    milliseconds by dotted path, the parts' and decode_window's) and
+    counters.
     """
     from .. import native
     from .sources import RtlSdrSource, SourceError, SyntheticSource
@@ -446,7 +461,8 @@ def run_daemon(args) -> int:
                 deadline = _now() + seconds_to_next_window()
                 while not stop and _now() < deadline:
                     _sleep(min(0.1, max(deadline - _now(), 0.0)))
-            timer = StageTimer()
+            timer = StageTimer(detail=args.stats,
+                               window=procs[0].windows_done)
             basebands = []
             short = None
             for src, ring, proc in zip(sources, rings, procs):
@@ -461,15 +477,7 @@ def run_daemon(args) -> int:
                     while (lib.ingest_ring_available(ring) < FULLRATE_WINDOW
                            and _now() < deadline and not stop):
                         _sleep(0.1)
-                with timer.stage("pop"):
-                    # the int8 decimator's set-up in the first window (its
-                    # pinned staging buffer) is timed with the pop it serves
-                    pop_i, pop_q = proc.pop_buffers(i8, q8)
-                    got = lib.ingest_ring_pop(
-                        ring,
-                        pop_i.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
-                        pop_q.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
-                        FULLRATE_WINDOW)
+                pop_i, pop_q, got = proc.pop_window(lib, ring, i8, q8)
                 if got < FULLRATE_WINDOW:
                     short = got
                     break
@@ -503,24 +511,29 @@ def run_daemon(args) -> int:
                 i_b = np.stack([b[0] for b in basebands])
                 q_b = np.stack([b[1] for b in basebands])
                 epoch = int(_now()) - SIGNAL_LENGTH_S + 1
-                t0 = time.time()
-                with timer.stage("decode"):
+                with timer.stage("decode") as part:
                     results, mb_stats = decode_window(
                         (i_b, q_b), hashes=[p.hashes for p in procs],
                         return_stats=True, passes=args.multipass,
-                        decoder=decoder, **ap_options(args, procs[0].qso))
-                decode_ms = (time.time() - t0) * 1000.0
+                        decoder=decoder, timer=timer,
+                        **ap_options(args, procs[0].qso))
                 for bi, (proc, decodes, bb) in enumerate(
                         zip(procs, results, basebands)):
                     if proc.qso:
                         proc.qso.observe(decodes)
                     # ONE WindowStats across all bands, logged once
                     proc.emit(decodes, epoch, mb_stats if bi == 0 else None,
-                              decode_ms, i_bb=bb[0], q_bb=bb[1])
+                              part.ms, i_bb=bb[0], q_bb=bb[1])
             if args.stats:
                 logger.info(json.dumps({"window_seconds": {
                     k: v / 1000.0 for k, v in timer.timings.items()},
                     "bands": len(bands)}, sort_keys=True))
+                logger.info(json.dumps({"window_spans": {
+                    path: {"host_ms": v["host_ms"],
+                           "device_ms": v["device_ms"]}
+                    for path, v in timer.by_path().items()},
+                    "counters": timer.counters, "epoch": procs[0].epoch},
+                    sort_keys=True))
             if args.maxloop and procs[0].windows_done >= args.maxloop:
                 stop = True
             if not stop and not synthetic:

@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .ops import tables
+from .host.log import NO_TIMER, WindowStats
+from .ops import build, tables
 from .ops.ap import (apply_clamp, bank_correlate, clamp_row_cq,
                      clamp_row_to_call, codeword_signs)
 from .ops.ldpc import bp_decode, crc_check
@@ -433,19 +434,33 @@ def unpack_survivors(out, n_channels, hashes=None):
     return results, sub_params
 
 
-def _decode_pass(decoder, i_t, q_t, hashes, **kw):
+def _decode_pass(decoder, i_t, q_t, hashes, timer, **kw):
     """One device pass + host unpack (rtlsdr_ft8d_tpu/pipeline.py:400-418):
     (B, 48000) float32 I/Q on the decoder's device and the forward's
     options -> (per-channel Decode lists, per-channel subtraction params,
     the survivor dict as numpy, with n_osd_recovered when the deep decode
-    ran)."""
-    with torch.no_grad():
-        out = decoder(i_t, q_t, **kw)
-    out = {k: v.cpu().numpy() for k, v in out.items()}
-    results, sub_params = unpack_survivors(out, i_t.shape[0], hashes)
+    ran). `timer` records the spans forward, download, unpack and osd and
+    their counters."""
+    with timer.stage("forward", device=decoder.device):
+        if timer.detail:
+            before = {n: k.launches for n, k in build.KERNELS.items()}
+        with torch.no_grad():
+            out = decoder(i_t, q_t, **kw)
+        if timer.detail:
+            for n, k in build.KERNELS.items():
+                timer.count("launches." + n, k.launches - before.get(n, 0))
+    with timer.stage("download"):
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        if timer.detail:
+            timer.count("download_bytes", sum(v.nbytes for v in out.values()))
+    with timer.stage("unpack"):
+        results, sub_params = unpack_survivors(out, i_t.shape[0], hashes)
+        if timer.detail:
+            timer.count("survivors", np.count_nonzero(out["ok"]))
     if kw.get("osd_cands", 0) > 0:
-        out["n_osd_recovered"] = _merge_osd_decodes(out, results,
-                                                    sub_params, hashes)
+        with timer.stage("osd"):
+            out["n_osd_recovered"] = _merge_osd_decodes(out, results,
+                                                        sub_params, hashes)
     return results, sub_params, out
 
 
@@ -581,7 +596,7 @@ def decode_window(iq, hashes: CallsignHashTable | None = None,
                   ap_call: str | None = None, ap_texts=None,
                   device: str | torch.device = "cuda",
                   decoder: WindowDecoder | None = None,
-                  return_stats: bool = False):
+                  return_stats: bool = False, timer=None):
     """Decode a batch of channels; returns (per channel) Decode lists.
 
     `iq` may be (48000,) or (B, 48000), complex or an (i, q) tuple of
@@ -601,28 +616,48 @@ def decode_window(iq, hashes: CallsignHashTable | None = None,
     at most MAX_OSD candidates per batch). `return_stats` also returns a
     WindowStats with the counters summed over passes (and the OSD
     recoveries in `extra` when osd_cands > 0).
+
+    `timer` (host/log.StageTimer; None records nothing) times the spans
+    upload (the float32 conversion, the copy to the decoder's device and
+    the AP operands), forward (also on the device), download, unpack,
+    osd, subtract and stats inside the caller's open stage, and, on a
+    detailed timer, counts upload_bytes (none for tensors already on the
+    device), download_bytes, survivors (the `ok` rows unpacked) and each
+    kernel's launches in the forward (launches.<kernel>); the spans and
+    counters of every pass add under the same names.
     """
+    if timer is None:
+        timer = NO_TIMER
     if decoder is None:
         decoder = WindowDecoder().to(device)
     dev = decoder.device
-    if isinstance(iq, tuple):
-        i_t, q_t = (x.to(dev, torch.float32) if torch.is_tensor(x) else
-                    torch.from_numpy(np.ascontiguousarray(x, np.float32))
-                    .to(dev) for x in iq)
-    else:
-        iq = np.asarray(iq)
-        i_t = torch.from_numpy(np.real(iq).astype(np.float32)).to(dev)
-        q_t = torch.from_numpy(np.imag(iq).astype(np.float32)).to(dev)
-    squeeze = i_t.ndim == 1
-    if squeeze:
-        i_t, q_t = i_t[None], q_t[None]
+    with timer.stage("upload"):
+        if isinstance(iq, tuple):
+            i_t, q_t = (x.to(dev, torch.float32) if torch.is_tensor(x) else
+                        torch.from_numpy(np.ascontiguousarray(x, np.float32))
+                        .to(dev) for x in iq)
+            copied = [not (torch.is_tensor(x) and x.device == dev)
+                      for x in iq]
+        else:
+            iq = np.asarray(iq)
+            i_t = torch.from_numpy(np.real(iq).astype(np.float32)).to(dev)
+            q_t = torch.from_numpy(np.imag(iq).astype(np.float32)).to(dev)
+            copied = [True, True]
+        squeeze = i_t.ndim == 1
+        if squeeze:
+            i_t, q_t = i_t[None], q_t[None]
+        clamp_signs, cw_signs = ap_tensors(ap_cq, ap_call, ap_texts, dev)
+        if timer.detail:
+            moved = [t for t, c in zip((i_t, q_t), copied) if c]
+            moved += [t for t in (clamp_signs, cw_signs) if t is not None]
+            timer.count("upload_bytes", sum(t.nbytes for t in moved))
 
-    clamp_signs, cw_signs = ap_tensors(ap_cq, ap_call, ap_texts, dev)
     kw = dict(budget=budget, num_candidates=num_candidates,
               ldpc_iters=ldpc_iters, sync_exact=sync_exact,
               osd_cands=osd_cands, ap_clamp_signs=clamp_signs,
               ap_cw_signs=cw_signs)
-    results, sub_params, out = _decode_pass(decoder, i_t, q_t, hashes, **kw)
+    results, sub_params, out = _decode_pass(decoder, i_t, q_t, hashes,
+                                            timer, **kw)
     outs = [out]
 
     # Multipass (rtlsdr_ft8d_tpu/pipeline.py:614-654): subtract the
@@ -631,9 +666,10 @@ def decode_window(iq, hashes: CallsignHashTable | None = None,
     for _ in range(passes - 1):
         if not any(sub_params):
             break
-        i_t, q_t = _subtract_decoded(i_t, q_t, sub_params)
+        with timer.stage("subtract"):
+            i_t, q_t = _subtract_decoded(i_t, q_t, sub_params)
         res2, sub_params, out2 = _decode_pass(decoder, i_t, q_t, hashes,
-                                              **kw)
+                                              timer, **kw)
         outs.append(out2)
         for b in range(len(results)):
             known = {d.text for d in results[b]}
@@ -643,20 +679,20 @@ def decode_window(iq, hashes: CallsignHashTable | None = None,
     results = results[0] if squeeze else results
     if not return_stats:
         return results
-    from .host.log import WindowStats
 
     # counters summed over all passes (pipeline.py:655-671)
     B = i_t.shape[0]
-    stats = WindowStats(
-        channels=B,
-        candidates_scored=len(outs) * B * num_candidates,
-        candidates_above_min=sum(int(np.sum(o["n_above_min"]))
-                                 for o in outs),
-        ldpc_converged=sum(int(np.sum(o["n_ldpc_ok"])) for o in outs),
-        crc_passed=sum(int(np.sum(o["n_ok"])) for o in outs),
-        messages_unique=sum(len(r) for r in
-                            ([results] if squeeze else results)),
-        extra=({"osd_recovered": sum(int(o["n_osd_recovered"])
-                                     for o in outs)}
-               if osd_cands > 0 else {}))
+    with timer.stage("stats"):
+        stats = WindowStats(
+            channels=B,
+            candidates_scored=len(outs) * B * num_candidates,
+            candidates_above_min=sum(int(np.sum(o["n_above_min"]))
+                                     for o in outs),
+            ldpc_converged=sum(int(np.sum(o["n_ldpc_ok"])) for o in outs),
+            crc_passed=sum(int(np.sum(o["n_ok"])) for o in outs),
+            messages_unique=sum(len(r) for r in
+                                ([results] if squeeze else results)),
+            extra=({"osd_recovered": sum(int(o["n_osd_recovered"])
+                                         for o in outs)}
+                   if osd_cands > 0 else {}))
     return results, stats

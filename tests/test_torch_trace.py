@@ -1,0 +1,248 @@
+"""The port's span recorder (host/log.StageTimer) and its spans and
+counters in decode_window and the daemon.
+
+A timer without detail keeps only the top-level parts; a detailed one
+records every span of decode_window under the caller's part, with its
+parent and window, the counters (bytes up and down, survivors, kernel
+launches), the spans of every pass under the same paths, and, while
+torch.profiler runs, a range "ft8d.<path>" per span nested as the spans
+are. run_daemon --stats logs one window_spans record a window beside the
+window_seconds and window_stats records; decode_ms is monotonic time.
+Imports no JAX: the `cuda` test runs on the GPU machine with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_trace.py -q
+"""
+
+import json
+import os
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from rtlsdr_ft8d_tpu_torch import pipeline
+from rtlsdr_ft8d_tpu_torch.host import cli, daemon
+from rtlsdr_ft8d_tpu_torch.host.io import read_iq
+from rtlsdr_ft8d_tpu_torch.host.log import NO_TIMER, StageTimer
+from rtlsdr_ft8d_tpu_torch.ops import build
+from rtlsdr_ft8d_tpu_torch.pipeline import WindowDecoder, decode_window
+from rtlsdr_ft8d_tpu_torch.protocol.text import CallsignHashTable
+
+from .torch_cpu import few_torch_threads  # noqa: F401
+
+FIX = os.path.join(os.path.dirname(__file__), "fixtures")
+BASE = ["-f", "20m", "-c", "T1ST", "-l", "AA00"]
+DECODE_SPANS = {"decode", "decode.upload", "decode.forward",
+                "decode.download", "decode.unpack", "decode.stats"}
+
+
+@pytest.fixture(scope="module")
+def batch():
+    """Two channels as host float32: golden_10sig's window and silence."""
+    i, q = read_iq(os.path.join(FIX, "golden_10sig.iq"))
+    return np.stack([i, 0 * i]), np.stack([q, 0 * q])
+
+
+@pytest.fixture(scope="module")
+def decoder():
+    return WindowDecoder()
+
+
+@pytest.fixture
+def unpacked(monkeypatch):
+    """The survivor dicts decode_window hands to unpack_survivors."""
+    seen = []
+    orig = pipeline.unpack_survivors
+
+    def spy(out, *a, **k):
+        seen.append(out)
+        return orig(out, *a, **k)
+
+    monkeypatch.setattr(pipeline, "unpack_survivors", spy)
+    return seen
+
+
+def _decode(batch, decoder, timer, **kw):
+    with timer.stage("decode"):
+        return decode_window(batch, hashes=CallsignHashTable(),
+                             decoder=decoder, return_stats=True,
+                             timer=timer, **kw)
+
+
+def test_timer_without_detail_records_no_nested_span(batch, decoder):
+    timer = StageTimer()
+    with timer.stage("pop"):
+        with timer.stage("inner") as inner:
+            timer.count("n", 3)
+    results, _ = _decode(batch, decoder, timer)
+    assert set(timer.timings) == {"pop", "decode"}
+    assert timer.timings["decode"] > 0 and inner.ms == 0.0
+    assert timer.spans == [] and timer.counters == {}
+    assert timer.by_path() == {}
+    assert decode_window(batch, hashes=CallsignHashTable(), decoder=decoder,
+                         timer=None) == results
+    assert (NO_TIMER.timings, NO_TIMER.spans, NO_TIMER.counters) == \
+        ({}, [], {})
+
+
+@pytest.mark.parametrize("passes", [1, 2])
+def test_detailed_decode_window_spans_and_counters(batch, decoder, unpacked,
+                                                   passes):
+    timer = StageTimer(detail=True, window=7)
+    results, stats = _decode(batch, decoder, timer, passes=passes)
+    assert "CQ K1JT FN20" in {d.text for d in results[0]}
+    paths = timer.by_path()
+    want = DECODE_SPANS | ({"decode.subtract"} if passes > 1 else set())
+    assert set(paths) == want
+    assert list(timer.timings) == ["decode"]
+    for s in timer.spans:
+        assert s.window == 7 and s.end_ns >= s.start_ns
+        assert s.parent == (None if s.path == "decode" else "decode")
+        assert s.events is None and s.device_ms is None     # the CPU
+    for path in ("decode.forward", "decode.download", "decode.unpack"):
+        assert paths[path]["count"] == passes
+    for path in ("decode", "decode.upload", "decode.stats"):
+        assert paths[path]["count"] == 1
+    children = sum(v["host_ms"] for p, v in paths.items() if p != "decode")
+    assert paths["decode"]["self_ms"] == pytest.approx(
+        paths["decode"]["host_ms"] - children)
+    assert len(unpacked) == passes
+    c = timer.counters
+    assert c["decode.upload_bytes"] == 2 * batch[0].size * 4
+    assert c["decode.download_bytes"] == sum(
+        v.nbytes for out in unpacked for v in out.values())
+    assert c["decode.survivors"] == sum(
+        int(np.count_nonzero(out["ok"])) for out in unpacked)
+    assert c["decode.survivors"] >= stats.messages_unique > 0
+    assert {f"decode.launches.{n}" for n in build.KERNELS} <= set(c)
+    assert all(c[f"decode.launches.{n}"] == 0 for n in build.KERNELS)
+
+
+def test_upload_bytes_zero_for_tensors_on_the_device(batch, decoder):
+    timer = StageTimer(detail=True)
+    iq = tuple(torch.from_numpy(x) for x in batch)
+    _decode(iq, decoder, timer, ap_cq=True)
+    # the I/Q sit on the decoder's device; only the CQ clamp row goes up
+    assert timer.counters["decode.upload_bytes"] == 77 * 4
+
+
+def test_profiler_ranges_match_the_spans(batch, decoder):
+    from torch.profiler import ProfilerActivity, profile
+
+    timer = StageTimer(detail=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _decode(batch, decoder, timer, passes=2)
+    ranges = {}
+    for e in prof.events():
+        if e.name.startswith("ft8d."):
+            parent = e.cpu_parent
+            while parent is not None and not parent.name.startswith("ft8d."):
+                parent = parent.cpu_parent
+            ranges.setdefault(e.name[5:], []).append(
+                (e.time_range.start, parent.name if parent else None,
+                 (e.time_range.end - e.time_range.start) / 1e3))
+    spans = {}
+    for s in timer.spans:
+        spans.setdefault(s.path, []).append(s)
+    assert set(ranges) == set(spans)
+    for path, mine in spans.items():
+        got = sorted(ranges[path])
+        assert len(got) == len(mine)
+        for s, (_, parent, ms) in zip(mine, got):
+            assert parent == (None if s.parent is None
+                              else "ft8d." + s.parent)
+            assert abs(ms - s.host_ms) <= max(0.2 * s.host_ms, 0.2), \
+                (path, s.host_ms, ms)
+
+
+def test_stats_daemon_logs_window_spans(monkeypatch):
+    from rtlsdr_ft8d_tpu_torch import native
+
+    if native.load() is None:
+        pytest.skip("native lib unavailable")
+    records = []
+    monkeypatch.setattr(daemon.logger, "info", records.append)
+    args = cli.build_parser().parse_args(
+        BASE + ["--synthetic", "-n", "2", "-x", "--stats", "--backend",
+                "cpu", "--wideband", "--wideband-channels", "0,1,2,3"])
+    assert daemon.run_daemon(args) == 0
+    seconds = [json.loads(r) for r in records if '"window_seconds"' in r]
+    assert len(seconds) == 2
+    for rec in seconds:
+        assert set(rec) == {"window_seconds", "bands"}
+        assert set(rec["window_seconds"]) == {"source", "pop", "channelize",
+                                              "decode", "spots"}
+    stats = [json.loads(r)["window_stats"] for r in records
+             if '"window_stats"' in r]
+    spans = [json.loads(r) for r in records if '"window_spans"' in r]
+    assert len(spans) == 2 and len(stats) == 2
+    for rec, st, sec in zip(spans, stats, seconds):
+        assert set(rec) == {"window_spans", "counters", "epoch"}
+        assert rec["epoch"] == st["epoch"]
+        paths = rec["window_spans"]
+        assert DECODE_SPANS | {"source", "pop", "channelize",
+                               "channelize.bank", "spots"} == set(paths)
+        assert all(set(v) == {"host_ms", "device_ms"}
+                   and v["device_ms"] is None for v in paths.values())
+        for part, s in sec["window_seconds"].items():
+            assert paths[part]["host_ms"] == pytest.approx(s * 1e3)
+        assert st["decode_ms"] == pytest.approx(paths["decode"]["host_ms"])
+        c = rec["counters"]
+        assert c["decode.upload_bytes"] == 0       # the bank stays put
+        assert c["decode.survivors"] >= st["messages_unique"] >= 1
+        assert c["decode.download_bytes"] > 0
+        assert all(c[f"decode.launches.{n}"] == 0 for n in build.KERNELS)
+
+
+def test_decode_ms_is_monotonic_when_the_clock_steps_back(monkeypatch):
+    records = []
+    monkeypatch.setattr(daemon.logger, "info", records.append)
+    args = cli.build_parser().parse_args(
+        BASE + ["-n", "1", "--stats", "--backend", "cpu"])
+    proc = daemon.WindowProcessor(args, 14_074_000, WindowDecoder())
+    wall = [2_000_000_000.0]
+
+    def stepping_back():
+        wall[0] -= 3600.0          # an NTP step back on every read
+        return wall[0]
+
+    monkeypatch.setattr(time, "time", stepping_back)
+    monkeypatch.setattr(daemon, "_now", stepping_back)
+    i, q = read_iq(os.path.join(FIX, "golden_10sig.iq"))
+    proc.process_baseband(i, q)
+    stats = [json.loads(r)["window_stats"] for r in records
+             if '"window_stats"' in r]
+    assert len(stats) == 1
+    assert stats[0]["decode_ms"] > 0
+    assert stats[0]["decode_ms"] == pytest.approx(
+        proc.timer.timings["decode"])
+
+
+@pytest.mark.cuda
+def test_device_ms_of_forward_and_bank():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the GPU machine)")
+    from rtlsdr_ft8d_tpu_torch.ops.channelize import StreamingChannelizerInt8
+
+    build.load()
+    dec = WindowDecoder().to("cuda")
+    ch = StreamingChannelizerInt8("cuda")
+    timer = StageTimer(detail=True)
+    n = daemon.FULLRATE_WINDOW // 8
+    rng = np.random.default_rng(3)
+    i8, q8 = ch.staging(n)
+    i8[:] = rng.integers(-100, 100, n, dtype=np.int8)
+    q8[:] = rng.integers(-100, 100, n, dtype=np.int8)
+    with timer.stage("channelize"):
+        with timer.stage("bank", device=ch.device):
+            i_ch, q_ch = ch.process(i8, q8)
+    i, q = read_iq(os.path.join(FIX, "golden_10sig.iq"))
+    _decode((i[None], q[None]), dec, timer)
+    paths = timer.by_path()
+    assert paths["channelize.bank"]["device_ms"] > 0
+    assert paths["decode.forward"]["device_ms"] > 0
+    assert paths["decode.upload"]["device_ms"] is None
+    assert timer.counters["decode.launches.waterfall"] == 1
+    assert timer.counters["decode.launches.bp"] >= 1
+    assert i_ch.shape[0] == 1500
