@@ -11,6 +11,8 @@ not been built.
 import ctypes
 import os
 
+import numpy as np
+
 from .ops import build
 
 _LIB = None
@@ -46,6 +48,27 @@ class Ft8SpotText(ctypes.Structure):
         ("rc", ctypes.c_int8),
         ("pad_", ctypes.c_uint8),
     ]
+
+
+def _record_dtype(struct):
+    """A ctypes Structure as a numpy record at the same offsets, with its
+    char arrays as byte strings ("S<n>")."""
+    def fmt(ctype):
+        if issubclass(ctype, ctypes.Array) and ctype._type_ is ctypes.c_char:
+            return f"S{ctypes.sizeof(ctype)}"
+        return np.dtype(ctype)
+    return np.dtype({"names": [n for n, _ in struct._fields_],
+                     "formats": [fmt(t) for _, t in struct._fields_],
+                     "offsets": [getattr(struct, n).offset
+                                 for n, _ in struct._fields_],
+                     "itemsize": ctypes.sizeof(struct)})
+
+
+# Ft8SpotText as a numpy record, for reading a batch in bulk. The native
+# code zeroes each record and writes every text field once by snprintf,
+# so numpy's reading of a field (up to its last non-NUL byte) is C's (up
+# to its first NUL).
+SPOT_DTYPE = _record_dtype(Ft8SpotText)
 
 
 def load(build_if_missing=True):

@@ -34,7 +34,7 @@ from .protocol.constants import (FT8_LDPC_K, FT8_LDPC_M, FT8_LDPC_N,
                                  K_LDPC_ITERS, K_MAX_CANDIDATES,
                                  K_MAX_MESSAGES, K_MIN_SCORE, TONE_SPACING_HZ)
 from .protocol.text import CallsignHashTable
-from .protocol.unpack import UnpackError, unpack_spot, unpack_spots_batch
+from .protocol.unpack import UnpackError, unpack_spot, unpack_spot_columns
 
 MAX_OSD = 1024          # global cap on the deep decode's selection
 
@@ -374,63 +374,57 @@ class WindowDecoder(nn.Module):
         return hard_r, ok_r, post_all[1], post_all[2]
 
 
-# Copied from rtlsdr_ft8d_tpu/pipeline.py:487-544 (that module imports jax).
-def unpack_survivors(out, n_channels, hashes=None):
+# Port of rtlsdr_ft8d_tpu/pipeline.py:487-544 (that module imports jax).
+def unpack_survivors(out, n_channels, hashes=None, *, timer=NO_TIMER):
     """Host side of a decode pass: batched unpack + dedup of the
-    device-compacted survivors. ONE native call covers every survivor of
-    every channel (hash-table side effects stay sequential in (channel,
-    rank) order, identical to a per-message loop)."""
-    per_row_hashes = isinstance(hashes, (list, tuple))
+    device-compacted survivors -> (per-channel Decode lists, per-channel
+    subtraction params (bits[:91], freq2, time2)).
+
+    ONE native call covers every survivor of every channel; the hash-
+    table side effects stay sequential in (channel, rank) order, each
+    channel's on its own table where `hashes` is a per-channel list,
+    identical to a per-message loop (protocol/unpack.py:
+    unpack_spot_columns). The survivors' fields are computed in bulk;
+    Python builds one Decode per text unique in its channel. A detailed
+    `timer` counts unpack_fallbacks, the survivors unpacked one at a time
+    in Python (a hashed call looked up, or every survivor without the
+    native library)."""
     results = [[] for _ in range(n_channels)]
     sub_params = [[] for _ in range(n_channels)]
-    ok_mask = np.asarray(out["ok"])
-    b_idx, k_idx = np.nonzero(ok_mask)
+    b_idx, k_idx = np.nonzero(np.asarray(out["ok"]))
     if b_idx.size == 0:
+        timer.count("unpack_fallbacks", 0)
         return results, sub_params
     packed = np.asarray(out["packed"])[b_idx, k_idx]       # (N, 12)
-    if per_row_hashes:
-        # group by channel so each band's adds/lookups hit its own table
-        spots = []
-        start = 0
-        while start < b_idx.size:
-            end = start
-            while end < b_idx.size and b_idx[end] == b_idx[start]:
-                end += 1
-            spots.extend(unpack_spots_batch(packed[start:end],
-                                            hashes[b_idx[start]]))
-            start = end
-    else:
-        spots = unpack_spots_batch(packed, hashes)
-    bits_all = np.unpackbits(packed, axis=1)               # (N, 96)
-    freq_off = np.asarray(out["freq_offset"])[b_idx, k_idx]
-    freq_sub = np.asarray(out["freq_sub"])[b_idx, k_idx]
-    time_off = np.asarray(out["time_offset"])[b_idx, k_idx]
-    time_sub = np.asarray(out["time_sub"])[b_idx, k_idx]
-    score = np.asarray(out["score"])[b_idx, k_idx]
-    snr = np.asarray(out["snr_db"])[b_idx, k_idx]
-    seen = [None] * n_channels
-    for n in range(b_idx.size):
-        spot = spots[n]
-        if spot is None:
-            continue
-        b = int(b_idx[n])
-        text, call, loc, is_cq = spot
-        if seen[b] is None:
-            seen[b] = set()
-        if text in seen[b]:
-            continue
-        seen[b].add(text)
-        freq_hz = (freq_off[n] + freq_sub[n] / 2.0) * TONE_SPACING_HZ
-        time_sec = (time_off[n] + time_sub[n] / 2.0) * 0.16
-        results[b].append(Decode(text=text, freq_hz=float(freq_hz),
-                                 time_sec=float(time_sec),
-                                 score=int(score[n]),
-                                 snr_db=float(snr[n]),
-                                 call_field=call, loc_field=loc,
-                                 cq_field=is_cq))
-        sub_params[b].append((bits_all[n, :91],
-                              int(freq_off[n]) * 2 + int(freq_sub[n]),
-                              int(time_off[n]) * 2 + int(time_sub[n])))
+    text, call, loc, is_cq, n_python = unpack_spot_columns(packed, hashes,
+                                                          b_idx)
+    timer.count("unpack_fallbacks", n_python)
+    # the first survivor of each text in its channel, in (channel, rank)
+    # order: channel by channel, a dict from the texts in reverse
+    b_list = b_idx.tolist()
+    cuts = [0] + (np.flatnonzero(np.diff(b_idx)) + 1).tolist() + [len(text)]
+    keep = []
+    for s, e in zip(cuts[:-1], cuts[1:]):
+        keep += sorted(dict(zip(reversed(text[s:e]),
+                                range(e - 1, s - 1, -1))).values())
+    keep = [n for n in keep if text[n] is not None]
+    at = b_idx[keep], k_idx[keep]
+    col = lambda k: np.asarray(out[k])[at].astype(np.int64)  # noqa: E731
+    freq2 = col("freq_offset") * 2 + col("freq_sub")    # half-bin steps
+    time2 = col("time_offset") * 2 + col("time_sub")
+    bits91 = np.unpackbits(packed[keep], axis=1)[:, :91]
+    for n, f_hz, t_s, f2, t2, score, snr, bits in zip(
+            keep, (freq2 / 2.0 * TONE_SPACING_HZ).tolist(),
+            (time2 / 2.0 * 0.16).tolist(), freq2.tolist(), time2.tolist(),
+            col("score").tolist(),
+            np.asarray(out["snr_db"])[at].astype(np.float64).tolist(),
+            bits91):
+        b = b_list[n]
+        results[b].append(Decode(text=text[n], freq_hz=f_hz, time_sec=t_s,
+                                 score=score, snr_db=snr,
+                                 call_field=call[n], loc_field=loc[n],
+                                 cq_field=is_cq[n]))
+        sub_params[b].append((bits, f2, t2))
     return results, sub_params
 
 
@@ -454,7 +448,11 @@ def _decode_pass(decoder, i_t, q_t, hashes, timer, **kw):
         if timer.detail:
             timer.count("download_bytes", sum(v.nbytes for v in out.values()))
     with timer.stage("unpack"):
-        results, sub_params = unpack_survivors(out, i_t.shape[0], hashes)
+        # the timer goes only to a detailed timer, the one that counts, so
+        # a wrapper of unpack_survivors(out, n_channels, hashes) still fits
+        results, sub_params = unpack_survivors(
+            out, i_t.shape[0], hashes,
+            **({"timer": timer} if timer.detail else {}))
         if timer.detail:
             timer.count("survivors", np.count_nonzero(out["ok"]))
     if kw.get("osd_cands", 0) > 0:
@@ -622,7 +620,8 @@ def decode_window(iq, hashes: CallsignHashTable | None = None,
     the AP operands), forward (also on the device), download, unpack,
     osd, subtract and stats inside the caller's open stage, and, on a
     detailed timer, counts upload_bytes (none for tensors already on the
-    device), download_bytes, survivors (the `ok` rows unpacked) and each
+    device), download_bytes, survivors (the `ok` rows unpacked),
+    unpack_fallbacks (those unpacked one at a time in Python) and each
     kernel's launches in the forward (launches.<kernel>); the spans and
     counters of every pass add under the same names.
     """

@@ -107,6 +107,15 @@ class CallsignHashTable:
             return
         self._by22[hash_callsign(call, 22)] = call
 
+    def add_hashed(self, h22s, calls):
+        """add() each of `calls` under its precomputed 22-bit hash, in
+        order, so a later pair wins as with repeated add. The calls are
+        as add stores them (stripped, upper case), as
+        protocol/unpack.py:hash_calls_22 returns them; add's rules skip
+        the empty ones and those that start with '<'."""
+        self._by22.update((h, c) for h, c in zip(h22s, calls)
+                          if c and c[0] != "<")
+
     def lookup(self, h: int, nbits: int):
         if nbits == 22:
             return self._by22.get(h)

@@ -1,4 +1,5 @@
-# Copied from rtlsdr_ft8d_tpu/protocol/unpack.py:1-306.
+# Copied from rtlsdr_ft8d_tpu/protocol/unpack.py:1-255; the batch unpack
+# below unpack_spot is the port's own.
 """unpack77: 77-bit FT8 payload -> message text.
 
 Role-equivalent of ft8_lib's unpack.c; the reference consumes the unpacked
@@ -9,8 +10,8 @@ text / telemetry), 1, 2 (standard, '/R' and '/P'), 3 (RTTY RU), 4
 
 import numpy as np
 
-from .text import (A1, A2, A3, A4, FREE_TEXT_ALPHABET, MAX22, MAXGRID4,
-                   NTOKENS, CallsignHashTable)
+from .text import (A1, A2, A3, A4, FREE_TEXT_ALPHABET, HASH_ALPHABET, MAX22,
+                   MAXGRID4, NTOKENS, CallsignHashTable)
 
 
 class UnpackError(ValueError):
@@ -254,15 +255,59 @@ def unpack_spot(payload_bits: np.ndarray,
     return text, call, loc, is_cq
 
 
-def unpack_spots_batch(packed12, hashes: CallsignHashTable | None = None):
-    """Batched unpack of bit-packed 91-bit payloads (N, 12) uint8.
+# byte -> base-38 digit of HASH_ALPHABET (lower case as upper case; any
+# other byte, NUL included, counts as the space, digit 0)
+_HASH_DIGITS = np.zeros(256, np.uint64)
+for _d, _ch in enumerate(HASH_ALPHABET):
+    _HASH_DIGITS[ord(_ch)] = _HASH_DIGITS[ord(_ch.lower())] = _d
+# ASCII bytes that str.strip() removes or str.upper() changes
+_NEEDS_NORM = np.array([chr(b).isspace() or chr(b).islower()
+                        for b in range(256)]) & (np.arange(256) < 128)
 
-    The host hot path at 1000+ channels: one native C++ call renders all
-    texts and spot fields; Python only re-unpacks the (rare) records that
-    need a hash-table LOOKUP, and applies the hash-table ADD side effects
-    the native code computed (exact parity with sequential unpack_spot).
-    Returns a list of (text, call, loc, is_cq) tuples, None for records
-    that fail to unpack. Falls back to pure Python without the native lib.
+
+def hash_calls_22(calls):
+    """hash_callsign(call, 22) of many calls at once.
+
+    `calls`: an array of ASCII bytes (numpy "S" dtype), such as the add
+    fields of the native spot records. Returns the hashes as a list of
+    ints and each call as CallsignHashTable.add stores it (stripped,
+    upper case) as a list of str. A call that needs stripping or lower
+    case letters raised is normalized on its own; the others, and the
+    base-38 Horner sum over the first 11 characters, in bulk.
+    """
+    calls = np.array(calls, dtype=np.bytes_).ravel()
+    width = max(calls.dtype.itemsize, 11)
+    calls = calls.astype(f"S{width}")
+    raw = calls.view(np.uint8).reshape(calls.size, width)
+    for i in np.flatnonzero(_NEEDS_NORM[raw].any(axis=1)):
+        calls[i] = calls[i].decode().strip().upper().encode()
+    n = np.zeros(calls.size, np.uint64)
+    for digit in _HASH_DIGITS[raw[:, :11]].T:
+        n = n * np.uint64(38) + digit
+    h22 = (n * np.uint64(47055833459)) >> np.uint64(64 - 22)
+    return h22.tolist(), calls.astype(f"U{width}").tolist()
+
+
+def _gather(items, at):
+    """[items[i] for i in at], in bulk."""
+    return np.array(items, object)[at].tolist()
+
+
+def unpack_spot_columns(packed12, hashes=None, table_of=None):
+    """Batched unpack of bit-packed 91-bit payloads (N, 12) uint8 into
+    columns: (text, call, loc, is_cq, n_python). The four are lists of
+    str and bool as unpack_spot returns them, with text None for a record
+    that fails to unpack; n_python counts the records unpacked one at a
+    time in Python.
+
+    `hashes` is one CallsignHashTable (or None) for every record, or a
+    list of them with `table_of` (N,) naming each record's index in it.
+    The tables end as unpack_spot record by record in order leaves them:
+    one native call renders every record and the hash-table ADD side
+    effects it computed are stored in bulk, while a record that needs a
+    hash-table LOOKUP is re-unpacked by unpack_spot at its place in the
+    order. Without the native library every record goes through
+    unpack_spot.
     """
     import ctypes
 
@@ -270,38 +315,77 @@ def unpack_spots_batch(packed12, hashes: CallsignHashTable | None = None):
 
     packed12 = np.ascontiguousarray(packed12, np.uint8)
     n = packed12.shape[0]
-    if n == 0:
-        return []
-    lib = native.load()
+    if not isinstance(hashes, (list, tuple)):
+        hashes, table_of = [hashes], np.zeros(n, np.intp)
+    table_of = np.asarray(table_of, np.intp)
+    lib = native.load() if n else None
     if lib is None:
-        out = []
-        for row in packed12:
-            bits = np.unpackbits(row)
+        text, call, loc, is_cq = [None] * n, [""] * n, [""] * n, [False] * n
+        for i, t in enumerate(table_of.tolist()):
             try:
-                out.append(unpack_spot(bits[:77], hashes))
+                text[i], call[i], loc[i], is_cq[i] = unpack_spot(
+                    np.unpackbits(packed12[i])[:77], hashes[t])
             except UnpackError:
-                out.append(None)
-        return out
-    recs = (native.Ft8SpotText * n)()
+                pass
+        return text, call, loc, is_cq, n
+    # The native unpack is stateless, so each distinct payload is rendered
+    # once (a signal survives at several candidates); every record still
+    # makes its own table side effects, in order, below.
+    distinct, first, inverse = np.unique(packed12.view("V12").ravel(),
+                                         return_index=True,
+                                         return_inverse=True)
+    inverse = inverse.ravel()
+    rows = packed12[first]
+    recs = np.zeros(distinct.size, native.SPOT_DTYPE)
     lib.ft8_unpack_spot_batch(
-        packed12.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), n, recs)
-    out = []
-    for i in range(n):
-        r = recs[i]
-        if r.rc != 0:
-            out.append(None)
+        rows.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), rows.shape[0],
+        recs.ctypes.data_as(ctypes.POINTER(native.Ft8SpotText)))
+    text = _gather(recs["text"].astype("U64").tolist(), inverse)
+    call = _gather(recs["call"].astype("U16").tolist(), inverse)
+    loc = _gather(recs["loc"].astype("U8").tolist(), inverse)
+    is_cq = _gather(recs["is_cq"].astype(bool).tolist(), inverse)
+    ok = recs["rc"][inverse] == 0
+    for i in np.flatnonzero(~ok):
+        text[i] = None
+    has_table = np.array([h is not None for h in hashes])[table_of]
+    redo = ok & (recs["has_hash"][inverse] != 0) & has_table
+    adds = ok & ~redo & has_table
+    if not (adds.any() or redo.any()):
+        return text, call, loc, is_cq, 0
+    # each record's add_a then add_b; the blank pair at the end where
+    # nothing is added
+    h22, calls = hash_calls_22(np.stack([recs["add_a"], recs["add_b"]], 1))
+    pair = np.where(adds[:, None], 2 * inverse[:, None] + np.arange(2),
+                    2 * distinct.size).ravel()
+    h22, calls = _gather(h22 + [0], pair), _gather(calls + [""], pair)
+    # runs of records with one table and no lookup, cut around each lookup
+    redo_at = np.flatnonzero(redo)
+    bounds = np.union1d(np.flatnonzero(np.diff(table_of)) + 1,
+                        np.concatenate([[0, n], redo_at, redo_at + 1]))
+    bounds = bounds.tolist()
+    for s, e in zip(bounds[:-1], bounds[1:]):
+        table = hashes[table_of[s]]
+        if table is None:
             continue
-        if r.has_hash and hashes is not None:
-            bits = np.unpackbits(packed12[i])
+        if redo[s]:
             try:
-                out.append(unpack_spot(bits[:77], hashes))
+                text[s], call[s], loc[s], is_cq[s] = unpack_spot(
+                    np.unpackbits(packed12[s])[:77], table)
             except UnpackError:
-                out.append(None)
-            continue
-        if hashes is not None:
-            for a in (r.add_a, r.add_b):
-                if a:
-                    hashes.add(a.decode())
-        out.append((r.text.decode(), r.call.decode(), r.loc.decode(),
-                    bool(r.is_cq)))
-    return out
+                text[s] = None
+        else:
+            table.add_hashed(h22[2 * s:2 * e], calls[2 * s:2 * e])
+    return text, call, loc, is_cq, redo_at.size
+
+
+def unpack_spots_batch(packed12, hashes: CallsignHashTable | None = None):
+    """Batched unpack of bit-packed 91-bit payloads (N, 12) uint8.
+
+    unpack_spot_columns over one table, as a list of (text, call, loc,
+    is_cq) tuples, None for records that fail to unpack (exact parity
+    with sequential unpack_spot). Falls back to pure Python without the
+    native lib.
+    """
+    text, call, loc, is_cq, _ = unpack_spot_columns(packed12, hashes)
+    return [None if t is None else (t, c, g, q)
+            for t, c, g, q in zip(text, call, loc, is_cq)]

@@ -191,6 +191,7 @@ def test_stats_daemon_logs_window_spans(monkeypatch):
         c = rec["counters"]
         assert c["decode.upload_bytes"] == 0       # the bank stays put
         assert c["decode.survivors"] >= st["messages_unique"] >= 1
+        assert c["decode.unpack_fallbacks"] == 0   # no hashed call
         assert c["decode.download_bytes"] > 0
         assert all(c[f"decode.launches.{n}"] == 0 for n in build.KERNELS)
 
