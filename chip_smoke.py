@@ -53,15 +53,15 @@ failure exits non-zero:
               lists must be identical on all 512 channels;
   5. daemon   the port's CLI in-process, 4 bands x 2 synthetic windows with
               --pallas-ingest: CQ K1JT FN20 in every band's spots of both
-              windows, every kernel's launch count from that run > 0, the
-              seconds per window by part and the decimate part per band;
+              windows, every kernel's launch count from that run > 0 but
+              the OSD's (0: no --osd), the seconds per window by part and the decimate part per band;
               one band, one window with the
               float --ingest device path gives the same texts, frequencies
               and DTs; then multipass: on the masked scene of
               tests/test_multipass.py one pass finds the strong signal
               only, two passes find both;
   6. deep     the deep decode (--osd: refinement, one BP launch with
-              posteriors over every rung, host OSD) and the a-priori stack
+              posteriors over every rung, OSD on the card) and the a-priori stack
               (--ap: clamp rows, codeword bank) through decode_window, every
               decode kernel's launch count from that run > 0: golden_10sig
               with osd_cands=8 and 2 passes gives exactly golden_10sig.txt;
@@ -76,7 +76,12 @@ failure exits non-zero:
               bit-equal); one deep forward's launches, device busy, idle
               share and device ms by part (refinement, stacked-rung BP,
               the bank, the llr.cu SNR launch, held against its plain
-              version at that shape) and the host's OSD + merge ms; the
+              version at that shape); osd.cu on that forward's own
+              posteriors (512 rows, both flavors; and its valid rows)
+              and on 2,400 synthetic rows (accepts on flavor A and on
+              flavor B both > 0) bit-equal to native ft8_osd_batch, with
+              its times, the native calls' and its bound, and the OSD +
+              merge ms with the posteriors on the card; the
               daemon with --ap --osd 8 on 2 bands x 2 windows finds
               CQ K1JT FN20 in every band with one QSO tracker;
   7. wideband the 1500-channel channelizer and the full-band decode: (a)
@@ -92,7 +97,8 @@ failure exits non-zero:
               forward's launches and profile, and each decode kernel
               against its plain version on that forward's operands; (c)
               the same with osd_cands=1 (bench.py:387-408) decodes 41/41,
-              with the host's OSD + merge ms; (d) the full-band capture of
+              the OSD launched on the card, with the download, unpack,
+              OSD + merge ms; (d) the full-band capture of
               tests/test_channelize.py:87-111 through the channelizer, all
               1500 channels decoded and deduplicated, gives exactly its two
               texts; (e) the daemon with --wideband over all 1500 channels,
@@ -108,12 +114,14 @@ failure exits non-zero:
               row, the all-zero rows included, with times and bounds; the
               window's device busy and idle share; (b) the deep dense
               decode (1024 OSD rows, CQ + K1ABC clamp rows, 1024-row bank):
-              >= 41/41, osd_chan inside the band, the rungs' posterior
+              >= 41/41 with the OSD on the card (its OSD + merge ms),
+              osd_chan inside the band, the rungs' posterior
               launch bit-equal; (c) the sharded decode of the bench batch
               (budget 1024, osd_cands 2) over 4 slots: every field of the
               one-slot forward equal but the posteriors, within POST_ATOL;
               (d) the elastic mesh 4 -> 2 -> 1 under an injected
-              heartbeat, decode lists unchanged; (e) the halo decimator (a
+              heartbeat, decode lists unchanged, and one window with OSD
+              rows whose OSD runs on the card; (e) the halo decimator (a
               full window) and channelizer (odd frames per slot), 4 slots
               against 1; (f) two processes on gloo, each decoding its half
               of the scene over the global (2, 2) mesh, equal to (a), and
@@ -151,6 +159,8 @@ BENCH_MSGS = ["CQ K1JT FN20", "K1ABC W9XYZ EN37", "CQ VA2GKA FN35",
 LADDER_SNRS = [-10.0, -11.5, -13.0, -14.5, -16.0, -17.0, -18.0, -19.0]
 PER_RUNG = 8
 DECODE_KERNELS = ("waterfall", "sync", "llr", "bp")
+# phase 6 (g)'s synthetic OSD rows: the deep cell's rows a window
+OSD_SYNTHETIC_ROWS = 2400
 DAEMON_BANDS = ("20m", "40m", "30m", "17m")
 DAEMON_WINDOWS = 2
 SPOT = "CQ K1JT FN20"
@@ -178,10 +188,12 @@ POST_ATOL = 0.05
 # H100 SXM published peaks at a 700 W limit (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# integer operations: 64 INT32 lanes an SM x 132 SMs x 1.98 GHz
+INT32_OPS_PER_S = 16.7e12
 # each kernel's function in the profiler's kernel names
 KERNEL_SYMBOLS = {"waterfall": "waterfall_kernel", "sync": "sync_kernel",
                   "llr": "llr_kernel", "bp": "bp_kernel",
-                  "decimate": "decimate_kernel"}
+                  "decimate": "decimate_kernel", "osd": "osd_kernel"}
 
 
 class Failure(Exception):
@@ -248,6 +260,24 @@ def bp_bound(x, outputs, row_iterations):
     return bound(x.numel() * 4 + sum(t.numel() * t.element_size()
                                      for t in outputs),
                  32 * 522 * row_iterations)
+
+
+def osd_bound(n_rows, n_runs, depth=24, pair_depth=10):
+    """osd.cu's bound: both flavors' posteriors in, messages and accept
+    out; and the iterations of native/osd.cc's inner loops, one integer
+    operation each, for the `n_runs` rows and flavors run, at the least
+    the inputs need: 91 basis steps of 91 reduce and 91 back-eliminate
+    checks, the solve's 91 parities, 1 + depth encodes of 83 parities,
+    depth inverse columns of 91 bits, the two sorts' comparisons (174 x 8
+    and 91 x 7), the 174 summed reliabilities, and per pattern its three
+    words compared and its shortlist insertion. Returns (ms, bound by)."""
+    n_pat = 1 + depth + pair_depth * (pair_depth - 1) // 2
+    per_run = (2 * 91 * 91 + 91 + 83 * (1 + depth) + 91 * depth + 174 * 8
+               + 91 * 7 + 174 + 4 * n_pat)
+    t_bytes = (2 * n_rows * 174 * 4 + n_rows * 92) / HBM_BYTES_PER_S * 1e3
+    t_ops = per_run * n_runs / INT32_OPS_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "integer operations"))
 
 
 def profiled(torch, fn, calls, enough=bool, tries=3, required=True):
@@ -834,8 +864,11 @@ def run_daemon_path(torch, build):
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in build.KERNELS.items()}
     require(rc == 0, f"daemon exited {rc}: {err[-2000:]}")
-    require(all(n > 0 for n in launches.values()),
-            f"a kernel was not launched on the daemon path: {launches}")
+    # without --osd the daemon runs every kernel but the OSD's
+    require(launches["osd"] == 0
+            and all(n > 0 for k, n in launches.items() if k != "osd"),
+            f"a kernel was not launched on the daemon path, or the OSD "
+            f"was: {launches}")
     tables = parse_spot_tables(out)
     require(len(tables) == len(DAEMON_BANDS) * DAEMON_WINDOWS,
             f"daemon printed {len(tables)} spot tables")
@@ -1230,7 +1263,8 @@ def run_deep_path(torch, build, dec):
                     f"(floor 2 at one launch)")
         rungs = cap["rungs"]
     torch.cuda.synchronize()
-    launches = {n: build.KERNELS[n].launches for n in DECODE_KERNELS}
+    launches = {n: build.KERNELS[n].launches
+                for n in DECODE_KERNELS + ("osd",)}
     require(all(n > 0 for n in launches.values()),
             f"a kernel was not launched on the deep path: {launches}")
     rec["launches"] = launches
@@ -1285,12 +1319,14 @@ def deep_profile(torch, build, dec, busy, calls=3):
     name), device ms by part from the forward's own operands (the
     refinement, the stacked-rung bp_kernel, the bank on the refined
     LLRs, the llr.cu SNR launch), the llr.cu launch at that shape against
-    its plain version, and the host's OSD + merge ms."""
+    its plain version, osd.cu on the forward's posteriors against native
+    ft8_osd_batch (check_osd_kernel), and the OSD + merge ms with the
+    posteriors on the card (the lists equal to the host OSD's)."""
     from rtlsdr_ft8d_tpu_torch.ops import ap, ldpc, llr
-    from rtlsdr_ft8d_tpu_torch.pipeline import (_merge_osd_decodes,
+    from rtlsdr_ft8d_tpu_torch.pipeline import (OSD_POSTERIORS,
+                                                _merge_osd_decodes,
                                                 ap_tensors, refine_llrs_flat,
                                                 unpack_survivors)
-    from rtlsdr_ft8d_tpu_torch.ops.osd import osd_batch
     from rtlsdr_ft8d_tpu_torch.protocol.text import CallsignHashTable
 
     dev = dec.device
@@ -1387,18 +1423,26 @@ def deep_profile(torch, build, dec, busy, calls=3):
                "bound_by": b_by,
                "max_abs_err": (l_k - l_p).abs().max().item()}
 
-    # the host's part: unpack, then OSD + merge, on this forward's output
+    osd_rec = check_osd_kernel(torch, out)
+
+    # unpack, then OSD + merge on this forward's output with the
+    # posteriors left on the card (as _decode_pass leaves them), timed;
+    # once with everything downloaded (the host's OSD), untimed: the
+    # same lists
     out_np = {k: v.cpu().numpy() for k, v in out.items()}
-    merge, osd_only_ms = [], []
-    for _ in range(5):
+    out_card = {k: v if k in OSD_POSTERIORS else out_np[k]
+                for k, v in out.items()}
+    merge, lists = [], []
+    for o in [out_card] * 5 + [out_np]:
         hashes = CallsignHashTable()
-        res, sub = unpack_survivors(out_np, B, hashes)
+        res, sub = unpack_survivors(o, B, hashes)
         t0 = time.perf_counter()
-        n_rec = _merge_osd_decodes(out_np, res, sub, hashes)
+        n_rec = _merge_osd_decodes(o, res, sub, hashes)
         merge.append((time.perf_counter() - t0) * 1e3)
-        t0 = time.perf_counter()
-        osd_batch(out_np["osd_post"][out_np["osd_valid"]])
-        osd_only_ms.append((time.perf_counter() - t0) * 1e3)
+        lists.append((n_rec, res, sub))
+    require(all(str(x) == str(lists[0]) for x in lists),
+            "the OSD merge differs between the card's posteriors and the "
+            "host's")
     rec = {"launches_per_forward": per_forward, "wall_ms": wall_ms,
            "device_busy_ms": busy_ms,
            "idle_share": None if prof is None else 1.0 - busy_ms / wall_ms,
@@ -1407,9 +1451,9 @@ def deep_profile(torch, build, dec, busy, calls=3):
            "refine_card_vs_cpu_max_err": refine_err,
            "rung_codewords": int(rungs.shape[0] * rungs.shape[1]),
            "n_osd": n_osd, "osd_rows": int(out_np["osd_valid"].sum()),
-           "host_osd_merge_ms": statistics.median(merge),
-           "host_osd_batch_ms": statistics.median(osd_only_ms),
-           "osd_recovered": n_rec, "llr_osd_snr": llr_rec}
+           "osd_merge_ms": statistics.median(merge[:5]),
+           "osd_recovered": n_rec, "llr_osd_snr": llr_rec,
+           "osd_kernel": osd_rec}
     say("deep", f"one deep forward at B={B}, osd_cands={OSD_CANDS}, CQ + "
         f"{AP_CALL} rows, bank 1024: launches {per_forward}; stream "
         f"{fwd_stream_ms:.3f} ms (CUDA events); profiled over {calls}: wall "
@@ -1420,15 +1464,110 @@ def deep_profile(torch, build, dec, busy, calls=3):
         + f"; bp rungs {rec['rung_codewords']} codewords, llr SNR N={n_osd}; "
         f"refinement on the card vs the CPU: " + ", ".join(
             f"{n} {v:.3g}" for n, v in refine_err.items()) + "; "
-        f"host OSD + merge {rec['host_osd_merge_ms']:.3f} ms "
-        f"({rec['osd_rows']} rows; osd_batch alone "
-        f"{rec['host_osd_batch_ms']:.3f} ms)")
+        f"OSD + merge {rec['osd_merge_ms']:.3f} ms with the posteriors on "
+        f"the card ({rec['osd_rows']} rows), the lists equal to the host "
+        f"OSD's")
     say("deep", "deep forward device ms by name: " + "; ".join(
         f"{n[:90]} {v:.4f}" for n, v in top))
     say("deep", f"llr N={n_osd} (OSD SNR): s2 and valid bit-exact, LLR max "
         f"err {llr_rec['max_abs_err']:.3g}, {llr_rec['ms']:.4f} ms (device "
         f"{fmt_ms(llr_rec['device_ms'])}) vs plain {llr_rec['plain_ms']:.3f} ms, "
         f"bound {b_ms:.5f} ms ({b_by})")
+    return rec
+
+
+def osd_synthetic_rows(seed, n=OSD_SYNTHETIC_ROWS):
+    """(flavor A, flavor B) posteriors of n rows in five kinds, cycled,
+    as tests/test_torch_osd.py's _flavor_rows: codewords with LLRs
+    quantized to steps of 0.5 (ties in |llr| and exact zeros), pure
+    noise, noisy codewords either side of the max_norm gate, rows whose
+    flavor A is noise and whose flavor B carries the codeword (A
+    rejects, B accepts), and two noisy views of one codeword."""
+    from rtlsdr_ft8d_tpu_torch.protocol.crc import add_crc
+    from rtlsdr_ft8d_tpu_torch.protocol.encode import ldpc_encode
+
+    rng = np.random.default_rng(seed)
+    s = np.stack([2.0 * ldpc_encode(add_crc(rng.integers(0, 2, 77).astype(
+        np.uint8))) - 1.0 for _ in range(n)])
+    noise = lambda sigma: rng.normal(0, 1.0, s.shape) * sigma  # noqa: E731
+    kind = (np.arange(n) % 5)[:, None]
+    sigma = rng.uniform(1.9, 2.7, (n, 1))
+    quant = np.round((2.0 * s + noise(2.2)) * 2.0) / 2.0
+    a = np.select([kind == 0, kind == 1, kind == 2, kind == 3],
+                  [quant, noise(2.0), 2.0 * s + noise(sigma), noise(2.0)],
+                  2.0 * s + noise(1.8))
+    b = np.select([kind == 0, kind == 1, kind == 2, kind == 3],
+                  [np.round(quant + noise(1.0)), noise(2.0),
+                   2.0 * s + noise(sigma), 2.0 * s + noise(1.5)],
+                  2.0 * s + noise(2.0))
+    return a.astype(np.float32), b.astype(np.float32)
+
+
+def check_osd_kernel(torch, out):
+    """Phase 6 (g): osd.cu against native ft8_osd_batch's two calls
+    (flavor B on the rows A rejects) on one deep forward's own posteriors
+    (n_osd 512, both flavors, every row and the valid rows alone) and on
+    OSD_SYNTHETIC_ROWS synthetic rows (osd_synthetic_rows), where both
+    flavors must accept somewhere: messages and accept bit-equal; the
+    wrapper's ms (CUDA events), the kernel's device ms, the native calls'
+    host ms and the bound. The kernel is bound by the latency of each
+    row's chain, not by bytes or operations."""
+    from rtlsdr_ft8d_tpu_torch import native
+    from rtlsdr_ft8d_tpu_torch.ops import osd
+
+    require(native.load() is not None, "the native library did not load")
+    post_a, post_b = out["osd_post"], out["osd_post_coh"]
+    valid = np.flatnonzero(out["osd_valid"].cpu().numpy())
+    syn_a, syn_b = osd_synthetic_rows(2026)
+    sets = {"all": (post_a, post_b, np.arange(post_a.shape[0])),
+            "valid": (post_a, post_b, valid),
+            "synthetic": (torch.from_numpy(syn_a).to(post_a.device),
+                          torch.from_numpy(syn_b).to(post_a.device),
+                          np.arange(syn_a.shape[0]))}
+    rec = {}
+    for name, (set_a, set_b, rows) in sets.items():
+        a_np, b_np = set_a.cpu().numpy(), set_b.cpu().numpy()
+        idx = torch.from_numpy(rows).to(set_a.device)
+        pa, pb = set_a[idx].contiguous(), set_b[idx].contiguous()
+        before = osd.KERNEL.launches
+        msgs, accept = osd.osd_rows(pa, pb)
+        torch.cuda.synchronize()
+        require(osd.KERNEL.launches == before + (rows.size > 0),
+                "osd_rows on the card did not launch the kernel once")
+        want_m, want_a = (t.numpy() for t in osd.osd_rows_plain(
+            a_np[rows], b_np[rows]))
+        got_a = accept.cpu().numpy()
+        require(np.array_equal(got_a, want_a)
+                and np.array_equal(msgs.cpu().numpy(), want_m),
+                f"osd.cu differs from native ft8_osd_batch on "
+                f"{int(np.count_nonzero(got_a != want_a))} of {rows.size} "
+                f"accepts ({name} rows)")
+        n_runs = rows.size + int(np.count_nonzero(want_a != 1))
+        n_acc = np.bincount(want_a, minlength=3).tolist()
+        require(name != "synthetic" or (n_acc[1] > 0 and n_acc[2] > 0),
+                f"synthetic rows: accepts none/A/B {n_acc}, want some "
+                f"on both flavors")
+        host = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            osd.osd_rows_plain(a_np[rows], b_np[rows])
+            host.append((time.perf_counter() - t0) * 1e3)
+        b_ms, b_by = osd_bound(rows.size, n_runs)
+        r = {"rows": int(rows.size), "runs": n_runs,
+             "accept": n_acc,
+             "ms": median_ms(torch, lambda: osd.osd_rows(pa, pb)),
+             "device_ms": device_ms(torch, lambda: osd.osd_rows(pa, pb),
+                                    KERNEL_SYMBOLS["osd"], required=False),
+             "native_host_ms": statistics.median(host),
+             "bound_ms": b_ms, "bound_by": b_by}
+        rec[name] = r
+        say("deep", f"osd.cu, {name} rows "
+            f"({r['rows']} rows, {r['runs']} row-flavors run, accepts none/"
+            f"A/B {r['accept']}): messages and accept bit-equal to native "
+            f"ft8_osd_batch; {r['ms']:.4f} ms (device "
+            f"{fmt_ms(r['device_ms'])}) vs native {r['native_host_ms']:.2f} "
+            f"ms on the host; bound {b_ms:.5f} ms ({b_by}); the kernel is "
+            f"bound by each row's chain of dependent steps")
     return rec
 
 
@@ -1770,9 +1909,10 @@ def run_wideband_scene(torch, build, dec, smi):
     unseeded channels, ms per window (decode_window end to end and the
     device graph, median of 4), the launches of one forward, its
     torch.profiler breakdown, each kernel on its operands; then the deep
-    decode with osd_cands=1 (n_osd 1024): 41/41, ms per window and the
-    host's OSD + merge ms."""
-    from rtlsdr_ft8d_tpu_torch.pipeline import (_merge_osd_decodes,
+    decode with osd_cands=1 (n_osd 1024): 41/41, the OSD launched on the
+    card, ms per window and the download, unpack, OSD + merge ms."""
+    from rtlsdr_ft8d_tpu_torch.pipeline import (OSD_POSTERIORS,
+                                                _merge_osd_decodes,
                                                 decode_window,
                                                 unpack_survivors)
     from rtlsdr_ft8d_tpu_torch.protocol.text import CallsignHashTable
@@ -1794,11 +1934,15 @@ def run_wideband_scene(torch, build, dec, smi):
         res = decode_window((i_t, q_t), budget=WB_BUDGET, osd_cands=osd,
                             decoder=dec)
         torch.cuda.synchronize()
-        launches = {n: build.KERNELS[n].launches for n in DECODE_KERNELS}
+        launches = {n: build.KERNELS[n].launches
+                    for n in DECODE_KERNELS + ("osd",)}
         hit, other = score(res)
         require(hit == len(seeded), f"wideband {name}: {hit}/{len(seeded)}")
-        require(all(n > 0 for n in launches.values()),
-                f"wideband {name}: a kernel was not launched: {launches}")
+        # the OSD runs on the card with osd_cands, and only then
+        require(all(n > 0 for k, n in launches.items() if k != "osd")
+                and (launches["osd"] > 0) == bool(osd),
+                f"wideband {name}: a kernel was not launched, or the OSD "
+                f"was without osd_cands: {launches}")
         times, dev_times = [], []
         for _ in range(4):
             t0 = time.perf_counter()
@@ -1820,16 +1964,18 @@ def run_wideband_scene(torch, build, dec, smi):
              "device_graph_ms": statistics.median(dev_times),
              "launches": launches}
         if osd:
-            out_np = {k: v.cpu().numpy() for k, v in out.items()}
+            # as _decode_pass: the posteriors stay on the card
             host = []
             for _ in range(4):
                 t0 = time.perf_counter()
-                res_d, sub_d = unpack_survivors(out_np, WB_CHANNELS)
-                _merge_osd_decodes(out_np, res_d, sub_d, CallsignHashTable())
+                out_h = {k: v if k in OSD_POSTERIORS else v.cpu().numpy()
+                         for k, v in out.items()}
+                res_d, sub_d = unpack_survivors(out_h, WB_CHANNELS)
+                _merge_osd_decodes(out_h, res_d, sub_d, CallsignHashTable())
                 host.append((time.perf_counter() - t0) * 1e3)
-            r.update(host_unpack_osd_merge_ms=statistics.median(host),
-                     n_osd=int(out_np["osd_chan"].shape[0]),
-                     osd_rows=int(out_np["osd_valid"].sum()))
+            r.update(download_unpack_osd_merge_ms=statistics.median(host),
+                     n_osd=int(out_h["osd_chan"].shape[0]),
+                     osd_rows=int(out_h["osd_valid"].sum()))
         rec[name] = r
         say("wideband", f"bench wideband {name} ({WB_CHANNELS} channels, "
             f"budget {WB_BUDGET}, osd_cands={osd}): {r['correct']} seeded, "
@@ -1837,9 +1983,10 @@ def run_wideband_scene(torch, build, dec, smi):
             f"ms per "
             f"window end to end, device graph {r['device_graph_ms']:.2f} ms "
             f"(median of 4); launches {launches}"
-            + (f"; host unpack + OSD + merge "
-               f"{r['host_unpack_osd_merge_ms']:.2f} ms (n_osd {r['n_osd']}, "
-               f"{r['osd_rows']} rows)" if osd else "") + f"; {smi}")
+            + (f"; download, unpack, OSD on the card + merge "
+               f"{r['download_unpack_osd_merge_ms']:.2f} ms (n_osd "
+               f"{r['n_osd']}, {r['osd_rows']} rows)" if osd else "")
+            + f"; {smi}")
 
     # one forward: its launches, its profile, and its kernels' operands
     def forward():
@@ -2017,16 +2164,24 @@ def dense_capture(dec):
 
 
 def seeded_hits(out, seeded, n_channels, osd=False):
-    """Seeded texts decoded (after the host OSD merge with osd), from a
-    dense or sharded output dict of tensors."""
-    from rtlsdr_ft8d_tpu_torch.pipeline import (_merge_osd_decodes,
+    """Seeded texts decoded (after the OSD merge with osd, on the
+    posteriors' card as _decode_pass runs it), from a dense or sharded
+    output dict of tensors; and the decode lists and the OSD + merge ms
+    (None without osd)."""
+    from rtlsdr_ft8d_tpu_torch.pipeline import (OSD_POSTERIORS,
+                                                _merge_osd_decodes,
                                                 unpack_survivors)
 
-    out_np = {k: v.cpu().numpy() for k, v in out.items()}
-    res, sub = unpack_survivors(out_np, n_channels)
+    out_h = {k: v if k in OSD_POSTERIORS else v.cpu().numpy()
+             for k, v in out.items()}
+    res, sub = unpack_survivors(out_h, n_channels)
+    osd_ms = None
     if osd:
-        _merge_osd_decodes(out_np, res, sub, None)
-    return sum(m in {d.text for d in res[b]} for b, m in seeded.items()), res
+        t0 = time.perf_counter()
+        _merge_osd_decodes(out_h, res, sub, None)
+        osd_ms = (time.perf_counter() - t0) * 1e3
+    hit = sum(m in {d.text for d in res[b]} for b, m in seeded.items())
+    return hit, res, osd_ms
 
 
 def check_dense_kernels(torch, dec, cap):
@@ -2108,7 +2263,8 @@ def run_dense(torch, build, dec, smi):
     every ok slot equal; llr.cu and ldpc.cu on one slot's operands; one
     window's device busy and idle share. Then the deep dense decode on
     four slots: osd_cands_global 1024, the CQ and K1ABC clamp rows and
-    phase 6's 1024-row bank: >= 41/41 after the host OSD, every valid
+    phase 6's 1024-row bank: >= 41/41 after the OSD, which must run on
+    the card (its OSD + merge ms), every valid
     osd_chan in [0, 1500), and the rungs' ldpc.cu launch with posteriors
     held against its plain version."""
     from rtlsdr_ft8d_tpu_torch.parallel.dense import decode_window_dense
@@ -2135,7 +2291,7 @@ def run_dense(torch, build, dec, smi):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         launches = {n: build.KERNELS[n].launches for n in build.KERNELS}
-        hit, _ = seeded_hits(out, seeded, WB_CHANNELS)
+        hit, _, _ = seeded_hits(out, seeded, WB_CHANNELS)
         require(hit == len(seeded), f"dense {name}: {hit}/{len(seeded)}")
         require(all(launches[n] > 0 for n in DECODE_KERNELS),
                 f"dense {name}: a decode kernel was not launched: {launches}")
@@ -2189,21 +2345,26 @@ def run_dense(torch, build, dec, smi):
         out = decode_window_dense(i_n, q_n, mesh, global_budget=WB_BUDGET,
                                   osd_cands_global=1024, ap_clamp_signs=clamp,
                                   ap_cw_signs=cw)
-    hit, _ = seeded_hits(out, seeded, WB_CHANNELS, osd=True)
+    osd_before = build.KERNELS["osd"].launches
+    hit, _, osd_ms = seeded_hits(out, seeded, WB_CHANNELS, osd=True)
+    osd_launches = build.KERNELS["osd"].launches - osd_before
     chan = out["osd_chan"][out["osd_valid"]]
     require(hit >= len(seeded), f"dense deep: {hit}/{len(seeded)}")
+    require(osd_launches > 0, "dense deep: the OSD did not run on the card")
     require(chan.numel() == 0 or (int(chan.min()) >= 0
                                   and int(chan.max()) < WB_CHANNELS),
             f"dense deep: osd_chan outside [0, {WB_CHANNELS})")
     rungs = cap["rungs"]
     rec["deep"] = {"correct": f"{hit}/{len(seeded)}",
+                   "osd_launches": osd_launches, "osd_merge_ms": osd_ms,
                    "osd_rows": int(out["osd_valid"].sum()),
                    "n_osd": int(out["osd_chan"].shape[0]),
                    "bp_rungs": check_bp_rungs(torch, dec, rungs,
                                               required=False)}
     say("parallel", f"dense deep, 4 slots, osd_cands_global 1024, CQ + "
         f"{AP_CALL} rows, bank 1024: {hit}/{len(seeded)} seeded after the "
-        f"host OSD, {rec['deep']['osd_rows']} OSD rows of "
+        f"OSD on the card ({osd_launches} launch, OSD + merge {osd_ms:.2f} "
+        f"ms), {rec['deep']['osd_rows']} OSD rows of "
         f"{rec['deep']['n_osd']}, osd_chan inside [0, {WB_CHANNELS}); rungs "
         f"{tuple(rungs.shape[:-1])} held bit-equal")
     del i_n, q_n
@@ -2214,7 +2375,7 @@ def run_sharded(torch, dec, batch):
     """Phase 8 (c): decode_window_sharded on the bench batch (64 channels,
     budget 1024, osd_cands 2) over four cuda:0 slots against
     WindowDecoder.forward on one: every field but the posteriors equal,
-    and the decode lists after the host OSD. Each shard refines its own
+    and the decode lists after the OSD. Each shard refines its own
     rows, and the card's float32 products and sums round by row count,
     so the posteriors (largest magnitude about 30) are held within
     POST_ATOL of the forward's."""
@@ -2242,7 +2403,7 @@ def run_sharded(torch, dec, batch):
             require(torch.equal(got[k], want[k]), f"sharded: {k} differs")
     lists = []
     for out in (got, want):
-        _, res = seeded_hits(out, {}, B, osd=True)
+        _, res, _ = seeded_hits(out, {}, B, osd=True)
         lists.append([[(d.text, d.freq_hz, d.score) for d in r]
                       for r in res])
     require(lists[0] == lists[1], "sharded: decode lists differ")
@@ -2258,9 +2419,14 @@ def run_elastic(torch, dec, batch):
     """Phase 8 (d): ElasticDecoder over four cuda:0 slots with an injected
     heartbeat: two slots die between windows (mesh 4 -> 2), one during a
     window through a failing first call (-> 1); the decode lists stay
-    those of the first window. The real device_heartbeat of cuda:0."""
+    those of the first window. The real device_heartbeat of cuda:0. Then
+    one window with OSD rows (as the daemon's --elastic --osd): the
+    posteriors stay on the card and the OSD of the merge runs there."""
+    from rtlsdr_ft8d_tpu_torch.ops import osd
     from rtlsdr_ft8d_tpu_torch.parallel import elastic
-    from rtlsdr_ft8d_tpu_torch.pipeline import normalize_peak, unpack_survivors
+    from rtlsdr_ft8d_tpu_torch.pipeline import (_merge_osd_decodes,
+                                                normalize_peak,
+                                                unpack_survivors)
 
     dev = dec.device
     require(elastic.device_heartbeat(dev, 10.0),
@@ -2301,11 +2467,25 @@ def run_elastic(torch, dec, batch):
             f"elastic: meshes {sizes}, recovered {ed.windows_recovered}")
     require(lists[1] == lists[0] and lists[2] == lists[0],
             "elastic: the decode lists changed with the mesh")
+    with torch.no_grad():
+        out, _ = ed.decode_window(i_n, q_n, BUDGET, osd_cands_global=2 * B)
+    res, sub = unpack_survivors(out, B)
+    before = osd.KERNEL.launches
+    t0 = time.perf_counter()
+    n_rec = _merge_osd_decodes(out, res, sub, None)
+    osd_ms = (time.perf_counter() - t0) * 1e3
+    require(out["osd_post"].is_cuda and osd.KERNEL.launches == before + 1,
+            f"elastic with OSD rows: posteriors on {out['osd_post'].device},"
+            f" {osd.KERNEL.launches - before} OSD launches, want the card "
+            f"and 1")
     say("parallel", f"elastic, 4 cuda:0 slots: meshes {sizes} (2 killed "
         f"between windows, 1 during one), windows_recovered "
         f"{ed.windows_recovered}, decode lists unchanged "
-        f"({sum(map(len, lists[0]))} texts); device_heartbeat({dev}) True")
-    return {"meshes": sizes, "windows_recovered": ed.windows_recovered}
+        f"({sum(map(len, lists[0]))} texts); device_heartbeat({dev}) True; "
+        f"osd_cands_global {2 * B}: OSD on the card, 1 launch, OSD + merge "
+        f"{osd_ms:.2f} ms, {n_rec} recovered")
+    return {"meshes": sizes, "windows_recovered": ed.windows_recovered,
+            "osd_merge_ms": osd_ms, "osd_recovered": n_rec}
 
 
 def run_halo(torch, dev):
@@ -2617,7 +2797,7 @@ def main() -> int:
     from rtlsdr_ft8d_tpu_torch.pipeline import WindowDecoder, normalize_peak
 
     build.load()
-    require(len(build.KERNELS) == 5, f"kernels: {sorted(build.KERNELS)}")
+    require(len(build.KERNELS) == 6, f"kernels: {sorted(build.KERNELS)}")
     say("build", f"{os.path.relpath(path, ROOT)} ({len(build.KERNELS)} "
         f"kernels) in {secs:.1f} s, nvcc {' '.join(build.NVCC_FLAGS)}; "
         f"{os.path.relpath(native_path, ROOT)} in {native_secs:.1f} s; "
@@ -2675,6 +2855,7 @@ def main() -> int:
             str(n) for n in rungs.shape[:-1]) + " posterior"] = \
             check_bp_rungs(torch, dec, rungs)
         deep["forward"] = deep_profile(torch, build, dec, busy)
+    rec["osd"] = deep["forward"]["osd_kernel"]
     llr_snr = deep["forward"]["llr_osd_snr"]
     rec["llr"]["ms_by_shape"][f"N={deep['forward']['n_osd']} osd snr"] = \
         llr_snr

@@ -1,6 +1,8 @@
 # Copied from rtlsdr_ft8d_tpu/ops/osd.py:1-366; the CRC-14 matrix comes from
 # the port's ops/tables.py (the original takes it from ops/ldpc.py, which
-# imports jax) and the native library from the port's bindings.
+# imports jax) and the native library from the port's bindings. From
+# osd_rows_plain on, the module is the port's own: the two flavors of the
+# deep decode in one call, and the kernel csrc/osd.cu.
 """Ordered-statistics decoding (OSD) of LDPC(174,91) BP failures.
 
 WSJT-X reaches ~-21 dB partly via OSD on candidates belief propagation
@@ -19,17 +21,28 @@ Method (OSD with order-1 + partial order-2 reprocessing):
   5. Accept only if the CRC-14 passes AND the normalized discrepancy is
      below a threshold (false-decode control; CRC alone is 14 bits).
 
-All in numpy on the host: it only ever runs on the <=N best FAILED
-candidates per window (the device graph already decoded everything BP
-can), and one solve is a 91x91 GF(2) elimination.
+It only ever runs on the <=N best FAILED candidates per window (the
+device graph already decoded everything BP can), and one solve is a 91x91
+GF(2) elimination. `osd_rows` reprocesses both posterior flavors of the
+deep decode: posteriors on a card go to the kernel csrc/osd.cu, every
+other input to `osd_batch` on the host (native, else numpy).
 """
 
+import ctypes
 import functools
 
 import numpy as np
+import torch
 
 from ..protocol.constants import FT8_LDPC_K, FT8_LDPC_N
+from . import build
 from .tables import crc_matrix
+
+KERNEL = build.Kernel(
+    "osd", "ft8_osd_rows", [build.P] * 6 + [build.I] * 4 + [ctypes.c_double],
+    source="rtlsdr_ft8d_tpu_torch/csrc/osd.cu",
+    replaces="no Pallas kernel: the host ft8_osd_batch of "
+             "rtlsdr_ft8d_tpu/ops/osd.py:osd_batch")
 
 _E = None           # (174, 91) systematic encoding matrix over GF(2)
 _POPCNT = np.array([bin(i).count("1") for i in range(256)], np.uint8)
@@ -375,3 +388,89 @@ def osd_batch_numpy(llrs: np.ndarray, max_norm: float = 0.12,
     accept[acc] = True
     msgs_out[acc] = best[acc, :k]
     return msgs_out, accept
+
+
+def osd_rows_plain(post_a, post_b=None, *, max_norm=0.12, depth=24,
+                   pair_depth=10, crc_top=8):
+    """Both flavors on the host, as pipeline._merge_osd_decodes ran them:
+    osd_batch on flavor A's (n, 174) posteriors, then on flavor B's rows
+    that A did not accept. Takes numpy arrays or CPU tensors. Returns CPU
+    tensors (messages (n, 91) uint8, zeros where no flavor accepts;
+    accept (n,) uint8: 0 none, 1 flavor A, 2 flavor B)."""
+    kw = dict(max_norm=max_norm, depth=depth, pair_depth=pair_depth,
+              crc_top=crc_top)
+    msgs, acc = osd_batch(np.asarray(post_a, np.float32), **kw)
+    accept = acc.astype(np.uint8)
+    rej = np.nonzero(~acc)[0]
+    if post_b is not None and rej.size:
+        msgs_b, acc_b = osd_batch(np.asarray(post_b, np.float32)[rej], **kw)
+        msgs[rej[acc_b]] = msgs_b[acc_b]
+        accept[rej[acc_b]] = 2
+    return torch.from_numpy(msgs), torch.from_numpy(accept)
+
+
+@functools.cache
+def kernel_tables() -> tuple[np.ndarray, np.ndarray]:
+    """The kernel's constant operands: the rows of E packed over the 91
+    message columns, (174, 2) int64 (column c in word c // 64, bit
+    c % 64), and the CRC-14 of each unit payload, (77,) int16 (bit b is
+    checked against codeword bit 77 + b)."""
+    E = encode_matrix().astype(np.uint64)
+    words = np.zeros((FT8_LDPC_N, 2), np.uint64)
+    for c in range(FT8_LDPC_K):
+        words[:, c >> 6] |= E[:, c] << np.uint64(c & 63)
+    crc = (crc_matrix().astype(np.int64) << np.arange(14)).sum(axis=1)
+    return words.view(np.int64), crc.astype(np.int16)
+
+
+@functools.cache
+def _tables_on(device: torch.device):
+    return tuple(torch.from_numpy(a).to(device) for a in kernel_tables())
+
+
+def osd_rows_cuda(post_a, post_b=None, *, max_norm=0.12, depth=24,
+                  pair_depth=10, crc_top=8):
+    """The kernel: one warp a row, flavor B only where flavor A does not
+    accept, both in one launch; the same outputs as osd_rows_plain, as
+    tensors on the posteriors' card. Takes the parameters native/osd.cc
+    takes: 0 <= pair_depth <= depth <= 32, 0 <= crc_top <= 16."""
+    if not (0 <= pair_depth <= depth <= 32 and 0 <= crc_top <= 16):
+        raise ValueError(f"the OSD kernel takes 0 <= pair_depth <= depth "
+                         f"<= 32 and 0 <= crc_top <= 16, got depth {depth}, "
+                         f"pair_depth {pair_depth}, crc_top {crc_top}")
+    dev = post_a.device
+    a = post_a.to(torch.float32).contiguous()
+    n = a.shape[0]
+    b = None if post_b is None else post_b.to(torch.float32).contiguous()
+    msgs = torch.empty((n, FT8_LDPC_K), dtype=torch.uint8, device=dev)
+    accept = torch.empty((n,), dtype=torch.uint8, device=dev)
+    if n:
+        e_tab, crc_tab = _tables_on(dev)
+        KERNEL(dev, build.check(a, torch.float32, (n, FT8_LDPC_N), dev),
+               None if b is None else
+               build.check(b, torch.float32, (n, FT8_LDPC_N), dev),
+               build.check(e_tab, torch.int64), build.check(crc_tab,
+                                                            torch.int16),
+               build.check(msgs, torch.uint8), build.check(accept, torch.uint8),
+               n, depth, pair_depth, crc_top, float(max_norm))
+    return msgs, accept
+
+
+def runs_on_card(post) -> bool:
+    """Whether osd_rows reprocesses posteriors `post` on a card (the
+    kernel) rather than on the host."""
+    return isinstance(post, torch.Tensor) and build.on_cuda(post)
+
+
+def osd_rows(post_a, post_b=None, *, max_norm=0.12, depth=24,
+             pair_depth=10, crc_top=8):
+    """OSD of the deep decode's BP failures, both flavors: (n, 174)
+    posteriors of flavor A and, optionally, of flavor B for the same rows
+    -> (messages (n, 91) uint8, accept (n,) uint8: 0 none, 1 flavor A, 2
+    flavor B, tried only where A does not accept). Posteriors on a card
+    launch the kernel (tensors on that card) or raise; numpy arrays and
+    CPU tensors take osd_rows_plain (CPU tensors). Both give exactly
+    ft8_osd_batch's messages and accepts."""
+    fn = osd_rows_cuda if runs_on_card(post_a) else osd_rows_plain
+    return fn(post_a, post_b, max_norm=max_norm, depth=depth,
+              pair_depth=pair_depth, crc_top=crc_top)

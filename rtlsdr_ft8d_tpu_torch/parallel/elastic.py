@@ -29,6 +29,7 @@ import threading
 import numpy as np
 import torch
 
+from ..pipeline import OSD_POSTERIORS
 from .dense import decode_window_dense
 from .sharding import Mesh, local_devices, slot_device
 
@@ -125,7 +126,8 @@ class ElasticDecoder:
         killed a slot.
 
         i_samples, q_samples: (B, 48000) float32, numpy or tensors (used
-        on their device). Returns (out as numpy, the mesh used); the
+        on their device). Returns (out, the mesh used): out as numpy but
+        the OSD_POSTERIORS, which stay tensors on the mesh's device; the
         outputs cover the B channels (zero-pad channels trimmed)."""
         b = i_samples.shape[0]
         last_err = None
@@ -140,7 +142,10 @@ class ElasticDecoder:
             try:
                 out = decode_window_dense(ii, qq, self.mesh, global_budget,
                                           **kw)
-                out = {k: v.cpu().numpy() for k, v in out.items()}
+                # the posteriors stay on their device, where the OSD of
+                # _merge_osd_decodes runs (as pipeline._decode_pass)
+                out = {k: v if k in OSD_POSTERIORS else v.cpu().numpy()
+                       for k, v in out.items()}
                 if pad:
                     # trim only CHANNEL-indexed outputs: the osd_* rows
                     # are flat candidates, whose count can equal b + pad

@@ -7,10 +7,11 @@ LLRs -> BP -> CRC, then the a-priori clamp rows (ops/ap.py, their BP in
 the same launch as the main pass) and the codeword bank, then with
 osd_cands > 0 the deep decode of the best BP failures (ops/refine.py
 matched filters, one BP launch over every rung, the bank again) ->
-survivor compaction on the device; unpack, dedup and the ordered-
-statistics reprocessing of the deep decode's posteriors (ops/osd.py) on
-the host; with passes > 1, subtraction of the decoded signals
-(ops/subtract.py) and a decode of the residual.
+survivor compaction on the device; unpack and dedup on the host; the
+ordered-statistics reprocessing of the deep decode's posteriors
+(ops/osd.py) where they lie, on the card or on the host; with passes >
+1, subtraction of the decoded signals (ops/subtract.py) and a decode of
+the residual.
 """
 
 from dataclasses import dataclass
@@ -27,6 +28,7 @@ from .ops.ap import (apply_clamp, bank_correlate, clamp_row_cq,
 from .ops.ldpc import bp_decode, crc_check
 from .ops.llr import (CAND_KEYS, estimate_snr, estimate_snr_flat,
                       extract_llrs, extract_llrs_flat)
+from .ops.osd import osd_rows, runs_on_card
 from .ops.refine import refine_llrs_flat
 from .ops.sync import find_sync, top_k
 from .ops.waterfall import waterfall
@@ -37,6 +39,8 @@ from .protocol.text import CallsignHashTable
 from .protocol.unpack import UnpackError, unpack_spot, unpack_spot_columns
 
 MAX_OSD = 1024          # global cap on the deep decode's selection
+# the deep decode's fields that _decode_pass leaves on the decoder's device
+OSD_POSTERIORS = ("osd_post", "osd_post_coh")
 
 
 # Copied from rtlsdr_ft8d_tpu/pipeline.py:43-89 (that module imports jax).
@@ -277,7 +281,7 @@ class WindowDecoder(nn.Module):
         """Refine the selected BP failures (flat indices `sel_f` into the
         (B, K) grid) from the (i, q) `samples`, BP on every rung, merge
         the successes into (hard, errors, ok); the posteriors of the rest
-        go to the host's OSD. Returns the merged (hard, errors, ok) and
+        go to the OSD (ops/osd.osd_rows). Returns the merged (hard, errors, ok) and
         the osd_* fields, in the order of `sel_f`. A detailed `timer`
         records the span "deep", also on the device, and counts the
         selection's rows as deep_rows."""
@@ -439,28 +443,29 @@ def _decode_pass(decoder, i_t, q_t, hashes, timer, bank_rows=0, **kw):
     """One device pass + host unpack (rtlsdr_ft8d_tpu/pipeline.py:400-418):
     (B, 48000) float32 I/Q on the decoder's device and the forward's
     options -> (per-channel Decode lists, per-channel subtraction params,
-    the survivor dict as numpy, with n_osd_recovered when the deep decode
-    ran). `timer` records the spans forward (forward.deep inside it with
-    the deep decode), download, unpack and osd and their counters, and
-    counts the pass, its clamp rows (ap_rows) and the bank's `bank_rows`
-    non-zero rows."""
+    the survivor dict as numpy but the OSD_POSTERIORS, which stay on the
+    decoder's device, with n_osd_recovered when the deep decode ran).
+    `timer` records the spans forward (forward.deep inside it with the
+    deep decode), download, unpack and osd (also on the device) and their
+    counters, and counts the pass, its clamp rows (ap_rows), the bank's
+    `bank_rows` non-zero rows and each kernel's launches in the pass."""
     if timer.detail:
         clamp = kw.get("ap_clamp_signs")
         timer.count("passes")
         timer.count("ap_rows", 0 if clamp is None else clamp.shape[0])
         timer.count("bank_rows", bank_rows)
+        before = {n: k.launches for n, k in build.KERNELS.items()}
     with timer.stage("forward", device=decoder.device):
-        if timer.detail:
-            before = {n: k.launches for n, k in build.KERNELS.items()}
         with torch.no_grad():
             out = decoder(i_t, q_t, timer=timer, **kw)
-        if timer.detail:
-            for n, k in build.KERNELS.items():
-                timer.count("launches." + n, k.launches - before.get(n, 0))
     with timer.stage("download"):
-        out = {k: v.cpu().numpy() for k, v in out.items()}
+        # the OSD's posteriors stay on the decoder's device, where
+        # _merge_osd_decodes reprocesses them
+        out = {k: v if k in OSD_POSTERIORS else v.cpu().numpy()
+               for k, v in out.items()}
         if timer.detail:
-            timer.count("download_bytes", sum(v.nbytes for v in out.values()))
+            timer.count("download_bytes", sum(
+                v.nbytes for k, v in out.items() if k not in OSD_POSTERIORS))
     with timer.stage("unpack"):
         # the timer goes only to a detailed timer, the one that counts, so
         # a wrapper of unpack_survivors(out, n_channels, hashes) still fits
@@ -470,45 +475,45 @@ def _decode_pass(decoder, i_t, q_t, hashes, timer, bank_rows=0, **kw):
         if timer.detail:
             timer.count("survivors", np.count_nonzero(out["ok"]))
     if kw.get("osd_cands", 0) > 0:
-        with timer.stage("osd"):
+        with timer.stage("osd", device=decoder.device):
             out["n_osd_recovered"] = _merge_osd_decodes(
                 out, results, sub_params, hashes, timer=timer)
+    if timer.detail:
+        for n, k in build.KERNELS.items():
+            timer.count("launches." + n, k.launches - before.get(n, 0))
     return results, sub_params, out
 
 
 # Copied from rtlsdr_ft8d_tpu/pipeline.py:421-484 (that module imports jax);
 # the counters of a detailed `timer` are the port's own.
 def _merge_osd_decodes(out, results, sub_params, hashes, *, timer=NO_TIMER):
-    """Host OSD reprocessing of the BP-failed candidates the device
-    shipped (posterior LLRs), merging CRC-clean recoveries into the
-    per-channel decode lists. A detailed `timer` counts the rows handed
-    to osd_batch, both flavors (osd_candidates), and the recoveries
-    (osd_recovered)."""
-    from .ops.osd import osd_batch
-
+    """OSD reprocessing (ops/osd.osd_rows) of the BP-failed candidates the
+    device shipped (posterior LLRs, on the card or on the host), merging
+    CRC-clean recoveries into the per-channel decode lists. A detailed
+    `timer` counts the rows reprocessed, both flavors (osd_candidates),
+    those of them reprocessed on a card (osd_device_rows) and the
+    recoveries (osd_recovered)."""
     valid = np.asarray(out["osd_valid"])            # (n_osd,)
     n_idx = np.nonzero(valid)[0]
     timer.count("osd_candidates", n_idx.size)
     if n_idx.size == 0:
+        timer.count("osd_device_rows", 0)
         timer.count("osd_recovered", 0)
         return 0
     chan = np.asarray(out["osd_chan"])
-    post = np.asarray(out["osd_post"])[n_idx]
-    msgs, accept = osd_batch(post)
-    # second attempt on the block-coherent posteriors for the
-    # rows the triple-flavor attempt rejected (+1..2/48
-    # recoveries at -21..-22 dB, scripts/osd_coh_ab.py);
-    # incremental host cost tracks the reject count only
-    post_c = out.get("osd_post_coh")
+    # flavor B, the block-coherent posteriors, is tried on the rows that
+    # flavor A rejects (+1..2/48 recoveries at -21..-22 dB,
+    # scripts/osd_coh_ab.py)
+    post, post_c = out["osd_post"], out.get("osd_post_coh")
+    rows = (torch.from_numpy(n_idx).to(post.device)
+            if isinstance(post, torch.Tensor) else n_idx)
+    msgs, accept = (t.cpu().numpy() for t in osd_rows(
+        post[rows], None if post_c is None else post_c[rows]))
+    n_rows = n_idx.size
     if post_c is not None:
-        rej = np.nonzero(~accept)[0]
-        timer.count("osd_candidates", rej.size)
-        if rej.size:
-            msgs2, accept2 = osd_batch(
-                np.asarray(post_c)[n_idx][rej])
-            hit = np.nonzero(accept2)[0]
-            msgs[rej[hit]] = msgs2[hit]
-            accept[rej[hit]] = True
+        n_rows += int(np.count_nonzero(accept != 1))
+        timer.count("osd_candidates", n_rows - n_idx.size)
+    timer.count("osd_device_rows", n_rows if runs_on_card(post) else 0)
     per_row = isinstance(hashes, (list, tuple))
     n_recovered = 0
     for j, n in enumerate(n_idx):
@@ -631,8 +636,8 @@ def decode_window(iq, hashes: CallsignHashTable | None = None,
     the operator's own callsign, ops/ap.py). `ap_texts`: complete message
     texts (QSO continuations) scored as a codeword bank, or a prebuilt
     (H, 174) +-1/0 sign array (QsoTracker.bank()). `osd_cands`: the
-    per-channel quota of the deep decode (refinement + BP + host OSD,
-    at most MAX_OSD candidates per batch). `return_stats` also returns a
+    per-channel quota of the deep decode (refinement + BP + OSD, at
+    most MAX_OSD candidates per batch). `return_stats` also returns a
     WindowStats with the counters summed over passes (and the OSD
     recoveries in `extra` when osd_cands > 0).
 
@@ -640,15 +645,17 @@ def decode_window(iq, hashes: CallsignHashTable | None = None,
     upload (the float32 conversion, the copy to the decoder's device and
     the AP operands), forward (also on the device; with osd_cands > 0
     forward.deep, the deep decode, also on the device), download, unpack,
-    osd, subtract (also on the device) and stats inside the caller's open
-    stage, and, on a detailed timer, counts upload_bytes (none for
-    tensors already on the device), download_bytes, survivors (the `ok`
+    osd and subtract (both also on the device) and stats inside the
+    caller's open stage, and, on a detailed timer, counts upload_bytes
+    (none for tensors already on the device), download_bytes (all but the
+    OSD_POSTERIORS, which stay on the device), survivors (the `ok`
     rows unpacked), unpack_fallbacks (those unpacked one at a time in
-    Python), each kernel's launches in the forward (launches.<kernel>),
+    Python), each kernel's launches in the pass (launches.<kernel>),
     passes (the passes run), ap_rows (the clamp rows), bank_rows (the
     bank's non-zero rows) and, with osd_cands > 0, deep_rows (the deep
-    decode's selection), osd_candidates (the rows handed to the host OSD,
-    both flavors) and osd_recovered; the spans and counters of every
+    decode's selection), osd_candidates (the rows handed to the OSD,
+    both flavors), osd_device_rows (those of them reprocessed on a card)
+    and osd_recovered; the spans and counters of every
     pass add under the same names.
     """
     if timer is None:

@@ -20,7 +20,7 @@ from rtlsdr_ft8d_tpu_torch.ops.ap import QsoTracker
 from rtlsdr_ft8d_tpu_torch.parallel import elastic
 from rtlsdr_ft8d_tpu_torch.parallel.elastic import (ElasticDecoder,
                                                     device_heartbeat)
-from rtlsdr_ft8d_tpu_torch.pipeline import WindowDecoder
+from rtlsdr_ft8d_tpu_torch.pipeline import OSD_POSTERIORS, WindowDecoder
 from rtlsdr_ft8d_tpu_torch.protocol.unpack import unpack77
 
 from .torch_cpu import few_torch_threads  # noqa: F401
@@ -85,12 +85,19 @@ def test_non_power_of_two_survivors_and_padding():
 
 def test_padding_keeps_osd_rows():
     """Only channel-indexed outputs are trimmed: osd_* rows are flat
-    candidates (8 slots x 1 each here)."""
+    candidates (8 slots x 1 each here). The posteriors stay tensors on
+    the mesh's device, where _merge_osd_decodes runs their OSD; every
+    other output is numpy."""
     dec = ElasticDecoder(CPU8, heartbeat=_heartbeat(set()))
     i_s, q_s = _batch(6)
     out, _ = dec.decode_window(torch.from_numpy(i_s), torch.from_numpy(q_s),
                                400, osd_cands_global=8)
     assert out["n_ok"].shape == (6,) and out["osd_chan"].shape == (8,)
+    for k, v in out.items():
+        if k in OSD_POSTERIORS:
+            assert isinstance(v, torch.Tensor) and v.shape == (8, 174), k
+        else:
+            assert isinstance(v, np.ndarray), k
 
 
 def test_midwindow_failure_shrinks_and_retries(monkeypatch):

@@ -145,6 +145,11 @@ def _public(module):
     return sorted(n for n in vars(module) if n.isupper())
 
 
+# the upper-case names a copied module adds to its original's: the handle
+# of the OSD kernel (csrc/osd.cu), which the JAX package does not have
+PORT_NAMES = {"osd": {"KERNEL"}}
+
+
 @pytest.mark.parametrize("mine,ref", [(constants, ref_constants),
                                       (parity_tables, ref_parity),
                                       (text, ref_text), (ap, ref_ap),
@@ -153,7 +158,8 @@ def _public(module):
                          ids=["constants", "parity_tables", "text", "ap",
                               "osd", "channelize"])
 def test_tables_equal(mine, ref):
-    assert _public(mine) == _public(ref)
+    extra = PORT_NAMES.get(mine.__name__.rsplit(".", 1)[-1], set())
+    assert _public(mine) == sorted(set(_public(ref)) | extra)
     for name in _public(ref):
         a, b = getattr(mine, name), getattr(ref, name)
         if isinstance(b, np.ndarray):

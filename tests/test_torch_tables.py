@@ -20,7 +20,7 @@ from rtlsdr_ft8d_tpu.ops import ldpc as jldpc
 from rtlsdr_ft8d_tpu.ops import refine as jrefine
 from rtlsdr_ft8d_tpu.ops import sync as jsync
 from rtlsdr_ft8d_tpu.ops import waterfall as jwf
-from rtlsdr_ft8d_tpu_torch.ops import build, decimate, tables
+from rtlsdr_ft8d_tpu_torch.ops import build, decimate, osd, tables
 from rtlsdr_ft8d_tpu_torch.pipeline import WindowDecoder
 
 from .torch_cpu import few_torch_threads  # noqa: F401
@@ -106,7 +106,7 @@ def test_dispatch_rule():
 
 
 def test_cpu_tensors_never_launch_a_kernel():
-    assert sorted(build.KERNELS) == ["bp", "decimate", "llr", "sync",
+    assert sorted(build.KERNELS) == ["bp", "decimate", "llr", "osd", "sync",
                                      "waterfall"]
     for k in build.KERNELS.values():
         k.launches = 0
@@ -117,11 +117,13 @@ def test_cpu_tensors_never_launch_a_kernel():
     with torch.no_grad():
         dec(x, y)
         dec(x, y, budget=64)
+    osd.osd_rows(torch.zeros((2, 174)), torch.ones((2, 174)))
     i8, q8 = rng.integers(-128, 128, (2, 4 * decimate.R), np.int8)
     decimate.StreamingDecimatorInt8(tables.polyphase_bank(),
                                     "cpu").process(i8, q8)
     assert {n: k.launches for n, k in build.KERNELS.items()} == \
-        {"bp": 0, "decimate": 0, "llr": 0, "sync": 0, "waterfall": 0}
+        {"bp": 0, "decimate": 0, "llr": 0, "osd": 0, "sync": 0,
+         "waterfall": 0}
 
 
 def test_decimator_bank_equals_jax_and_its_split_keeps_22_bits():

@@ -36,7 +36,7 @@ BASE = ["-f", "20m", "-c", "T1ST", "-l", "AA00"]
 DECODE_SPANS = {"decode", "decode.upload", "decode.forward",
                 "decode.download", "decode.unpack", "decode.stats"}
 DEEP_COUNTERS = ("passes", "ap_rows", "bank_rows", "deep_rows",
-                 "osd_candidates", "osd_recovered")
+                 "osd_candidates", "osd_device_rows", "osd_recovered")
 
 
 @pytest.fixture(scope="module")
@@ -113,7 +113,8 @@ def test_detailed_decode_window_spans_and_counters(batch, decoder, unpacked,
     c = timer.counters
     assert c["decode.upload_bytes"] == 2 * batch[0].size * 4
     assert c["decode.download_bytes"] == sum(
-        v.nbytes for out in unpacked for v in out.values())
+        v.nbytes for out in unpacked for k, v in out.items()
+        if k not in pipeline.OSD_POSTERIORS)
     assert c["decode.survivors"] == sum(
         int(np.count_nonzero(out["ok"])) for out in unpacked)
     assert c["decode.survivors"] >= stats.messages_unique > 0
@@ -239,6 +240,7 @@ def test_detailed_deep_decode_spans_and_counters(batch, decoder, unpacked):
                                         for out in unpacked) == 2 * 2 * n
     assert c["decode.osd_candidates"] >= sum(osd_seen)
     assert c["decode.osd_candidates"] <= 2 * sum(osd_seen)
+    assert c["decode.osd_device_rows"] == 0                 # the CPU
     assert c["decode.osd_recovered"] == stats.extra["osd_recovered"]
 
 
@@ -338,5 +340,8 @@ def test_device_ms_of_deep_and_subtract():
     paths = timer.by_path()
     assert paths["decode.forward.deep"]["device_ms"] > 0
     assert paths["decode.subtract"]["device_ms"] > 0
-    assert paths["decode.osd"]["device_ms"] is None
-    assert timer.counters["decode.deep_rows"] == 8 * 2
+    assert paths["decode.osd"]["device_ms"] > 0
+    c = timer.counters
+    assert c["decode.deep_rows"] == 8 * 2
+    assert c["decode.osd_device_rows"] == c["decode.osd_candidates"] > 0
+    assert 1 <= c["decode.launches.osd"] <= 2           # one a pass with rows
