@@ -2424,8 +2424,8 @@ def run_elastic(torch, dec, batch):
     posteriors stay on the card and the OSD of the merge runs there."""
     from rtlsdr_ft8d_tpu_torch.ops import osd
     from rtlsdr_ft8d_tpu_torch.parallel import elastic
-    from rtlsdr_ft8d_tpu_torch.pipeline import (_merge_osd_decodes,
-                                                normalize_peak,
+    from rtlsdr_ft8d_tpu_torch.pipeline import (OSD_POSTERIORS,
+                                                _merge_osd_decodes,
                                                 unpack_survivors)
 
     dev = dec.device
@@ -2435,9 +2435,14 @@ def run_elastic(torch, dec, batch):
     ed = elastic.ElasticDecoder([dev] * 4,
                                 heartbeat=lambda s, t: s not in dead,
                                 decoder=dec)
-    i_n, q_n = normalize_peak(
-        torch.from_numpy(np.real(batch).astype(np.float32)).to(dev),
-        torch.from_numpy(np.imag(batch).astype(np.float32)).to(dev))
+    i_t = torch.from_numpy(np.real(batch).astype(np.float32)).to(dev)
+    q_t = torch.from_numpy(np.imag(batch).astype(np.float32)).to(dev)
+
+    def download(out):
+        """decode_window's download: all but the posteriors to numpy."""
+        return {k: v if k in OSD_POSTERIORS else v.cpu().numpy()
+                for k, v in out.items()}
+
     real = elastic.decode_window_dense
     state = {"fired": False}
 
@@ -2456,10 +2461,10 @@ def run_elastic(torch, dec, batch):
             elastic.decode_window_dense = flaky
         try:
             with torch.no_grad():
-                out, mesh = ed.decode_window(i_n, q_n, BUDGET)
+                out = download(ed(i_t, q_t, budget=BUDGET))
         finally:
             elastic.decode_window_dense = real
-        sizes.append(mesh.size)
+        sizes.append(ed.mesh.size)
         res, _ = unpack_survivors(out, B)
         lists.append([sorted(d.text for d in r) for r in res])
     require(sizes == [4, 2, 1] and state["fired"]
@@ -2468,7 +2473,7 @@ def run_elastic(torch, dec, batch):
     require(lists[1] == lists[0] and lists[2] == lists[0],
             "elastic: the decode lists changed with the mesh")
     with torch.no_grad():
-        out, _ = ed.decode_window(i_n, q_n, BUDGET, osd_cands_global=2 * B)
+        out = download(ed(i_t, q_t, budget=BUDGET, osd_cands=2))
     res, sub = unpack_survivors(out, B)
     before = osd.KERNEL.launches
     t0 = time.perf_counter()
@@ -2482,7 +2487,7 @@ def run_elastic(torch, dec, batch):
         f"between windows, 1 during one), windows_recovered "
         f"{ed.windows_recovered}, decode lists unchanged "
         f"({sum(map(len, lists[0]))} texts); device_heartbeat({dev}) True; "
-        f"osd_cands_global {2 * B}: OSD on the card, 1 launch, OSD + merge "
+        f"osd_cands 2 ({2 * B} rows): OSD on the card, 1 launch, OSD + merge "
         f"{osd_ms:.2f} ms, {n_rec} recovered")
     return {"meshes": sizes, "windows_recovered": ed.windows_recovered,
             "osd_merge_ms": osd_ms, "osd_recovered": n_rec}

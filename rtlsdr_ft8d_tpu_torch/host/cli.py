@@ -133,8 +133,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "device")
     p.add_argument("--osd", type=int, default=0, metavar="M",
                    help="deep decode of the M best BP-failed candidates per "
-                        "channel: matched-filter refinement and BP on the "
-                        "backend, ordered-statistics decoding on the host "
+                        "channel: matched-filter refinement, BP and "
+                        "ordered-statistics decoding on the backend "
                         "(default 0 = off)")
     p.add_argument("--ap", action="store_true",
                    help="a-priori decoding: BP again with the known 'CQ' "

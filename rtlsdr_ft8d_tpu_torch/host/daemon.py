@@ -23,9 +23,10 @@ observes every band's decodes of a window at once, so a QSO ages one
 step a window (`decode_multiband`). It keeps its `max_pairs` (4) pairs
 heard last, in band order, so with many bands the bank holds the QSOs of
 the last bands that had one.
-With `--wideband --elastic`, the channels are decoded by the dense
-global-budget decode over an elastic mesh of the backend's cards
-(parallel/elastic.py), which keeps decoding when a card dies.
+With `--wideband --elastic`, decode_window decodes the channels in one
+pass with parallel/elastic.ElasticDecoder as its decoder: the dense
+global-budget decode over an elastic mesh of the backend's cards, which
+keeps decoding when a card dies.
 `--ingest auto` means the backend: the reference's transfer-leak probe
 of its TPU relay client (daemon.py:87-100) has no counterpart here.
 """
@@ -48,15 +49,13 @@ from ..ops.decimate import R, StreamingDecimator, StreamingDecimatorInt8
 from ..ops.tables import polyphase_bank
 from ..parallel.elastic import ElasticDecoder
 from ..parallel.sharding import local_devices
-from ..pipeline import (MAX_OSD, WindowDecoder, _merge_osd_decodes,
-                        ap_tensors, decode_window, normalize_peak,
-                        unpack_survivors)
-from ..protocol.constants import (CAPTURE_RATE, K_MAX_CANDIDATES,
-                                  SIGNAL_LENGTH_S, SIGNAL_SAMPLE_RATE)
+from ..pipeline import WindowDecoder, decode_window
+from ..protocol.constants import (CAPTURE_RATE, SIGNAL_LENGTH_S,
+                                  SIGNAL_SAMPLE_RATE)
 from ..protocol.text import CallsignHashTable
 from .cli import atofs, parse_frequency
 from .io import read_any, timestamped_name, write_c2, write_iq
-from .log import StageTimer, WindowStats, logger
+from .log import StageTimer, logger
 from .reporter import PskReporter, print_spots
 
 WINDOW = SIGNAL_LENGTH_S * SIGNAL_SAMPLE_RATE
@@ -102,8 +101,7 @@ def decode_file(args) -> int:
     results = decode_window(
         (i_s.reshape(n_windows, WINDOW), q_s.reshape(n_windows, WINDOW)),
         hashes=CallsignHashTable(), budget=budget, passes=args.multipass,
-        ap_cq=args.ap, osd_cands=args.osd,
-        ap_call=args.callsign if args.ap else None, device=args.backend)
+        device=args.backend, **ap_options(args, None))
     total = 0
     when = datetime.now(timezone.utc)
     for w, decodes in enumerate(results):
@@ -251,14 +249,7 @@ class WindowProcessor:
                 torch.cuda.synchronize(i_b.device)
         epoch = int(_now()) - SIGNAL_LENGTH_S + 1
         with self.timer.stage("decode") as part:
-            if self._elastic is not None:
-                results, stats = self._decode_elastic(i_b, q_b, budget)
-            else:
-                results, stats = decode_window(
-                    (i_b, q_b), hashes=self.hashes, return_stats=True,
-                    passes=self.args.multipass, budget=budget,
-                    decoder=self.decoder, timer=self.timer,
-                    **ap_options(self.args, self.qso))
+            results, stats = self._decode_wideband(i_b, q_b, budget)
         per_channel = []
         for k, decodes in zip(self.wb_channels, results):
             for d in decodes:
@@ -269,39 +260,24 @@ class WindowProcessor:
             self.qso.observe(all_decodes)
         return self.emit(all_decodes, epoch, stats, part.ms)
 
-    def _decode_elastic(self, i_b, q_b, budget):
-        """The wideband decode through ElasticDecoder (--elastic;
-        rtlsdr_ft8d_tpu/host/daemon.py:245-297): the dense global-budget
-        decode over a mesh of the backend's cards that shrinks when one
-        dies, with the clamp rows, the QSO bank and the per-shard deep
-        decode; no multipass. (i_b, q_b) are the (B, 48000) channels, on
-        the backend. The ElasticDecoder, and its decoder per card, are
-        built once per process (run_daemon passes it to every band)."""
-        B = i_b.shape[0]
-        # the -3 dB normalization of the pipeline: the dense path takes
-        # normalized samples
-        i_n, q_n = normalize_peak(*(torch.as_tensor(x) for x in (i_b, q_b)))
-        ap = self.args.ap
-        clamp, bank = ap_tensors(ap, self.args.callsign if ap else None,
-                                 self.qso.bank() if self.qso else None,
-                                 i_n.device)
-        osd = self.args.osd
-        out, _mesh = self._elastic.decode_window(
-            i_n, q_n, global_budget=budget or B * K_MAX_CANDIDATES,
-            osd_cands_global=min(B * osd, MAX_OSD) if osd else 0,
-            ap_clamp_signs=clamp, ap_cw_signs=bank)
-        results, sub = unpack_survivors(out, B, self.hashes)
-        extra = {"windows_recovered": self._elastic.windows_recovered,
-                 "mesh_devices": int(self._elastic.mesh.size)}
-        if osd:
-            extra["osd_recovered"] = _merge_osd_decodes(out, results, sub,
-                                                         self.hashes)
-        stats = WindowStats(
-            channels=B, candidates_scored=B * K_MAX_CANDIDATES,
-            candidates_above_min=int(np.sum(out["n_above_min"])),
-            ldpc_converged=int(np.sum(out["n_ldpc_ok"])),
-            crc_passed=int(np.sum(out["n_ok"])),
-            messages_unique=sum(len(r) for r in results), extra=extra)
+    def _decode_wideband(self, i_b, q_b, budget):
+        """decode_window of the (B, 48000) channels (i_b, q_b), on the
+        backend, with the process's WindowDecoder or, with --elastic, its
+        ElasticDecoder (rtlsdr_ft8d_tpu/host/daemon.py:245-297: the dense
+        global-budget decode over a mesh of the backend's cards that
+        shrinks when one dies; no multipass), whose shrinks and mesh size
+        the stats carry in `extra`. The ElasticDecoder, and its decoder
+        per card, are built once per process (run_daemon passes it to
+        every band). Returns (per-channel decode lists, WindowStats)."""
+        elastic = self._elastic
+        results, stats = decode_window(
+            (i_b, q_b), hashes=self.hashes, return_stats=True,
+            passes=1 if elastic else self.args.multipass, budget=budget,
+            decoder=elastic or self.decoder, timer=self.timer,
+            **ap_options(self.args, self.qso))
+        if elastic is not None:
+            stats.extra.update(windows_recovered=elastic.windows_recovered,
+                               mesh_devices=int(elastic.mesh.size))
         return results, stats
 
     def decimate_fullrate(self, i8: np.ndarray, q8: np.ndarray):
@@ -329,16 +305,13 @@ class WindowProcessor:
         return decodes
 
     def process_baseband(self, i_bb: np.ndarray, q_bb: np.ndarray):
+        """One band's window: decode_multiband on a batch of one."""
         i_bb, q_bb = _pad_window(i_bb, q_bb)
         epoch = int(_now()) - SIGNAL_LENGTH_S + 1
-        with self.timer.stage("decode") as part:
-            decodes, stats = decode_window(
-                (i_bb, q_bb), hashes=self.hashes, return_stats=True,
-                passes=self.args.multipass, decoder=self.decoder,
-                timer=self.timer, **ap_options(self.args, self.qso))
-        if self.qso:
-            self.qso.observe(decodes)
-        return self.emit(decodes, epoch, stats, part.ms, i_bb, q_bb)
+        results, stats, decode_ms = decode_multiband(
+            self.args, i_bb[None], q_bb[None], [self.hashes], self.qso,
+            self.decoder, self.timer)
+        return self.emit(results[0], epoch, stats, decode_ms, i_bb, q_bb)
 
 
 def ap_options(args, qso: QsoTracker | None) -> dict:

@@ -14,8 +14,9 @@ selection, BP on all of them (the unselected rows are all zero: errors
 selection, the deep decode per shard, compaction. Outputs are
 concatenated in slot order, row-major over (host, chip).
 
-The samples are taken as given: the caller normalizes them (the
-daemon's elastic path does, as rtlsdr_ft8d_tpu/host/daemon.py:264-268).
+The samples are taken as given: the caller normalizes them
+(parallel/elastic.ElasticDecoder does, as
+rtlsdr_ft8d_tpu/host/daemon.py:264-268).
 """
 
 import numpy as np
@@ -24,8 +25,7 @@ import torch
 from ..ops.llr import extract_llrs
 from ..ops.sync import top_k
 from ..pipeline import compact_survivors
-from ..protocol.constants import (FT8_LDPC_M, K_LDPC_ITERS, K_MAX_CANDIDATES,
-                                  K_MIN_SCORE)
+from ..protocol.constants import FT8_LDPC_M, K_MAX_CANDIDATES, K_MIN_SCORE
 from .distributed import Shard, all_gather_rows
 from .sharding import Mesh, concat_outputs, local_devices, on_device, rows_on
 
@@ -44,8 +44,6 @@ def make_grid_mesh(hosts: int, chips: int, devices=None) -> Mesh:
 
 def decode_window_dense(i_samples, q_samples, mesh: Mesh,
                         global_budget: int | None,
-                        num_candidates: int = K_MAX_CANDIDATES,
-                        ldpc_iters: int = K_LDPC_ITERS,
                         osd_cands_global: int = 0,
                         ap_clamp_signs=None, ap_cw_signs=None):
     """Decode channels sharded over the mesh with a GLOBAL budget.
@@ -74,7 +72,7 @@ def decode_window_dense(i_samples, q_samples, mesh: Mesh,
     q_loc = q_samples.data if sharded else q_samples
     B = i_samples.shape[0]
     if not global_budget:
-        global_budget = B * num_candidates
+        global_budget = B * K_MAX_CANDIDATES
     slots = mesh.local_slots()
     n_shards = mesh.size
     if B % n_shards or i_loc.shape[0] != B // n_shards * len(slots):
@@ -92,7 +90,7 @@ def decode_window_dense(i_samples, q_samples, mesh: Mesh,
         q_s = rows_on(q_loc, j * b_loc, (j + 1) * b_loc, dev)
         wf = dec._waterfall(i_s, q_s)
         shards.append((g, dec, (i_s, q_s), wf,
-                       dec.candidates(wf, num_candidates)))
+                       dec.candidates(wf)))
 
     # one gather of the scores, one global threshold
     gathered = torch.cat([cand["score"].reshape(-1).to(head, torch.int32)
@@ -115,7 +113,7 @@ def decode_window_dense(i_samples, q_samples, mesh: Mesh,
         cw = on_device(ap_cw_signs, dev)
         llrs = torch.where(selected[..., None], extract_llrs(wf, cand), 0.0)
         hard, errors, ok = dec._main_and_ap(llrs, scores, ap_rows, cw,
-                                            ldpc_iters, eligible=selected)
+                                            eligible=selected)
         errors = torch.where(selected, errors, FT8_LDPC_M)
         osd = {}
         if n_osd_loc > 0:
@@ -123,7 +121,7 @@ def decode_window_dense(i_samples, q_samples, mesh: Mesh,
             _, sel_f = top_k(flat_rank, min(n_osd_loc, flat_rank.shape[0]))
             hard, errors, ok, osd = dec.deep_pass(
                 samples, wf, cand, hard, errors, ok, failed, sel_f, ap_rows,
-                cw, ldpc_iters)
+                cw)
             osd["osd_chan"] = osd["osd_chan"] + g * b_loc   # global index
         out = compact_survivors(wf, cand, hard, errors, ok, dec.bit_weights)
         out["n_selected"] = selected.to(torch.int32).sum(-1)

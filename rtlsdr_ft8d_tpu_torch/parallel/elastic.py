@@ -29,7 +29,8 @@ import threading
 import numpy as np
 import torch
 
-from ..pipeline import OSD_POSTERIORS
+from ..host.log import NO_TIMER
+from ..pipeline import MAX_OSD, normalize_peak
 from .dense import decode_window_dense
 from .sharding import Mesh, local_devices, slot_device
 
@@ -55,7 +56,8 @@ def device_heartbeat(device, timeout: float = 5.0) -> bool:
 
 class ElasticDecoder:
     """Dense-band decoding over a mesh of slots that shrinks when slots
-    die.
+    die: a decoder for pipeline.decode_window, called as
+    WindowDecoder.forward is.
 
     `devices`: the slots (default one per visible card). `heartbeat(slot,
     timeout) -> bool` is asked per slot index; the default probes the
@@ -103,8 +105,8 @@ class ElasticDecoder:
     def check(self) -> bool:
         """Probe every living slot; shrink the mesh if any died. True iff
         the MESH changed: a dead spare outside the power-of-two prefix
-        leaves it as it was, and decode_window must not spend its retry
-        on the same mesh."""
+        leaves it as it was, and a call must not spend its retry on the
+        same mesh."""
         newly_dead = [s for s in self.alive_slots()
                       if not self.heartbeat(s, self.heartbeat_timeout)]
         if not newly_dead:
@@ -119,17 +121,26 @@ class ElasticDecoder:
 
     # -- decoding ------------------------------------------------------
 
-    def decode_window(self, i_samples, q_samples, global_budget: int,
-                      **kw):
-        """decode_window_dense over the current mesh, padded to a
-        multiple of its size, with one shrink-and-retry per failure that
-        killed a slot.
+    @property
+    def device(self) -> torch.device:
+        """The first slot of the current mesh, where the outputs land."""
+        return self.mesh.devices.flat[0]
 
-        i_samples, q_samples: (B, 48000) float32, numpy or tensors (used
-        on their device). Returns (out, the mesh used): out as numpy but
-        the OSD_POSTERIORS, which stay tensors on the mesh's device; the
-        outputs cover the B channels (zero-pad channels trimmed)."""
+    def __call__(self, i_samples, q_samples, *, budget=None, osd_cands=0,
+                 ap_clamp_signs=None, ap_cw_signs=None, timer=NO_TIMER):
+        """WindowDecoder.forward's contract over the current mesh: the
+        (B, 48000) float32 I/Q peak-normalized as WindowDecoder.forward
+        does, padded with zero channels to a multiple of the mesh size,
+        decoded by decode_window_dense with the global budget `budget`
+        (None or 0: all B * K) and min(B * osd_cands, MAX_OSD) deep-decode
+        rows across the mesh, with one shrink-and-retry per failure that
+        killed a slot. Returns the survivor dict as tensors on `device`,
+        the channel-indexed fields trimmed to the B channels. `timer` is
+        taken for the contract: the dense decode records no span of its
+        own."""
         b = i_samples.shape[0]
+        i_n, q_n = normalize_peak(torch.as_tensor(i_samples),
+                                  torch.as_tensor(q_samples))
         last_err = None
         # heartbeat once per window, so that deaths between windows
         # shrink the mesh BEFORE the decode instead of failing it
@@ -138,22 +149,20 @@ class ElasticDecoder:
         # kill at least one slot, or the error is re-raised
         for _attempt in range(len(self.all_devices) + 1):
             pad = (-b) % self.mesh.size
-            ii, qq = _padded(i_samples, pad), _padded(q_samples, pad)
             try:
-                out = decode_window_dense(ii, qq, self.mesh, global_budget,
-                                          **kw)
-                # the posteriors stay on their device, where the OSD of
-                # _merge_osd_decodes runs (as pipeline._decode_pass)
-                out = {k: v if k in OSD_POSTERIORS else v.cpu().numpy()
-                       for k, v in out.items()}
-                if pad:
-                    # trim only CHANNEL-indexed outputs: the osd_* rows
-                    # are flat candidates, whose count can equal b + pad
-                    out = {k: (v[:b] if not k.startswith("osd_")
-                               and v.ndim and v.shape[0] == b + pad
-                               else v)
-                           for k, v in out.items()}
-                return out, self.mesh
+                out = decode_window_dense(
+                    _padded(i_n, pad), _padded(q_n, pad), self.mesh, budget,
+                    osd_cands_global=min(b * osd_cands, MAX_OSD),
+                    ap_clamp_signs=ap_clamp_signs, ap_cw_signs=ap_cw_signs)
+                # a failed card surfaces here, inside the retry, not at
+                # the caller's download
+                for dev in {d for d in self.mesh.devices.flat
+                            if d.type == "cuda"}:
+                    torch.cuda.synchronize(dev)
+                # trim only CHANNEL-indexed outputs: the osd_* rows are
+                # flat candidates, whose count can equal b + pad
+                return {k: v if k.startswith("osd_") else v[:b]
+                        for k, v in out.items()}
             except Exception as e:      # a device or collective failure
                 last_err = e
                 if not self.check():
@@ -161,11 +170,8 @@ class ElasticDecoder:
         raise last_err
 
 
-def _padded(x, pad: int):
-    """x with `pad` zero channels appended (numpy or tensor)."""
+def _padded(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """x with `pad` zero channels appended."""
     if not pad:
         return x
-    if torch.is_tensor(x):
-        return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
-    x = np.asarray(x)
-    return np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+    return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])

@@ -24,8 +24,7 @@ import torch
 from ..ops.sync import top_k
 from ..pipeline import MAX_OSD, WindowDecoder, compact_survivors, \
     normalize_peak
-from ..protocol.constants import (K_LDPC_ITERS, K_MAX_CANDIDATES,
-                                  K_MIN_SCORE)
+from ..protocol.constants import K_MIN_SCORE
 
 CHANNEL_AXIS = "ch"
 
@@ -148,10 +147,7 @@ def concat_outputs(outs: list[dict], device) -> dict:
 
 
 def decode_window_sharded(i_samples, q_samples, mesh: Mesh,
-                          budget: int | None = None,
-                          num_candidates: int = K_MAX_CANDIDATES,
-                          ldpc_iters: int = K_LDPC_ITERS,
-                          sync_exact: bool = False, osd_cands: int = 0,
+                          budget: int | None = None, osd_cands: int = 0,
                           ap_clamp_signs=None, ap_cw_signs=None) -> dict:
     """Decode (B, 48000) float32 I/Q channels sharded over the mesh.
 
@@ -177,8 +173,7 @@ def decode_window_sharded(i_samples, q_samples, mesh: Mesh,
         wf = dec._waterfall(i_n, q_n)
         clamp = on_device(ap_clamp_signs, dev)
         shards.append({"dec": dec, "wf": wf, "samples": (i_n, q_n),
-                       "cand": dec.candidates(wf, num_candidates,
-                                              sync_exact),
+                       "cand": dec.candidates(wf),
                        "ap_rows": [] if clamp is None else list(clamp),
                        "cw": on_device(ap_cw_signs, dev)})
     K = shards[0]["cand"]["score"].shape[-1]
@@ -197,7 +192,7 @@ def decode_window_sharded(i_samples, q_samples, mesh: Mesh,
             lambda sh: sh["cand"]["score"].reshape(-1), budget)]
     for sh, sel in zip(shards, sels):
         sh["hard"], sh["errors"], sh["ok"] = sh["dec"].main_pass(
-            sh["wf"], sh["cand"], sel, sh["ap_rows"], sh["cw"], ldpc_iters)
+            sh["wf"], sh["cand"], sel, sh["ap_rows"], sh["cw"])
 
     osd = None
     if osd_cands > 0:
@@ -212,7 +207,7 @@ def decode_window_sharded(i_samples, q_samples, mesh: Mesh,
                 sh["dec"].deep_pass(sh["samples"], sh["wf"], sh["cand"],
                                     sh["hard"], sh["errors"], sh["ok"],
                                     sh["failed"], local, sh["ap_rows"],
-                                    sh["cw"], ldpc_iters)
+                                    sh["cw"])
             fields["osd_chan"] = fields["osd_chan"] + s * b_loc
             # the global selection's order
             for k, v in fields.items():

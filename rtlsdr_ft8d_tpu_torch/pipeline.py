@@ -174,27 +174,24 @@ class WindowDecoder(nn.Module):
         on a CPU one."""
         return self._waterfall(*normalize_peak(i_samples, q_samples))
 
-    def forward(self, i_samples: torch.Tensor, q_samples: torch.Tensor,
-                budget: int | None = None,
-                num_candidates: int = K_MAX_CANDIDATES,
-                ldpc_iters: int = K_LDPC_ITERS, sync_exact: bool = False,
-                osd_cands: int = 0,
+    def forward(self, i_samples: torch.Tensor, q_samples: torch.Tensor, *,
+                budget: int | None = None, osd_cands: int = 0,
                 ap_clamp_signs: torch.Tensor | None = None,
                 ap_cw_signs: torch.Tensor | None = None, timer=NO_TIMER):
-        """(B, 48000) float32 I/Q -> the compacted survivor dict (with the
-        osd_* fields when osd_cands > 0). The deep decode refines from
-        the peak-normalized samples; `timer` records its span."""
+        """The forward contract every decoder of decode_window honours
+        (parallel/elastic.ElasticDecoder too): (B, 48000) float32 I/Q on
+        `self.device` -> the compacted survivor dict as tensors on that
+        device (with the osd_* fields when osd_cands > 0). The deep
+        decode refines from the peak-normalized samples; `timer` records
+        its span."""
         i_n, q_n = normalize_peak(i_samples, q_samples)
         return self.decode_from_waterfall(
-            self._waterfall(i_n, q_n), budget, num_candidates, ldpc_iters,
-            sync_exact, osd_cands=osd_cands, ap_clamp_signs=ap_clamp_signs,
-            ap_cw_signs=ap_cw_signs, samples=(i_n, q_n), timer=timer)
+            self._waterfall(i_n, q_n), budget=budget, osd_cands=osd_cands,
+            ap_clamp_signs=ap_clamp_signs, ap_cw_signs=ap_cw_signs,
+            samples=(i_n, q_n), timer=timer)
 
-    def decode_from_waterfall(self, wf: torch.Tensor,
+    def decode_from_waterfall(self, wf: torch.Tensor, *,
                               budget: int | None = None,
-                              num_candidates: int = K_MAX_CANDIDATES,
-                              ldpc_iters: int = K_LDPC_ITERS,
-                              sync_exact: bool = False,
                               osd_cands: int = 0,
                               ap_clamp_signs: torch.Tensor | None = None,
                               ap_cw_signs: torch.Tensor | None = None,
@@ -208,7 +205,7 @@ class WindowDecoder(nn.Module):
         span "deep" of `timer`."""
         if osd_cands > 0 and samples is None:
             raise ValueError("osd_cands > 0 needs the normalized samples")
-        cand = self.candidates(wf, num_candidates, sync_exact)
+        cand = self.candidates(wf)
         B, K = cand["score"].shape
         ap_rows = [] if ap_clamp_signs is None else list(ap_clamp_signs)
 
@@ -217,7 +214,7 @@ class WindowDecoder(nn.Module):
         if budget and budget < B * K:
             _, sel = top_k(cand["score"].reshape(-1), budget)
         hard, errors, ok = self.main_pass(wf, cand, sel, ap_rows,
-                                          ap_cw_signs, ldpc_iters)
+                                          ap_cw_signs)
         if osd_cands <= 0:
             return compact_survivors(wf, cand, hard, errors, ok,
                                      self.bit_weights)
@@ -229,7 +226,7 @@ class WindowDecoder(nn.Module):
         _, sel_f = top_k(flat_rank, min(B * osd_cands, MAX_OSD, B * K))
         hard, errors, ok, osd = self.deep_pass(
             samples, wf, cand, hard, errors, ok, failed, sel_f, ap_rows,
-            ap_cw_signs, ldpc_iters, timer)
+            ap_cw_signs, timer)
         out = compact_survivors(wf, cand, hard, errors, ok, self.bit_weights)
         out.update(osd)
         return out
@@ -237,14 +234,12 @@ class WindowDecoder(nn.Module):
     # The stages of decode_from_waterfall, which the sharded and dense
     # decodes (parallel/) also run on each shard.
 
-    def candidates(self, wf: torch.Tensor,
-                   num_candidates: int = K_MAX_CANDIDATES,
-                   sync_exact: bool = False) -> dict:
-        """find_sync's (B, K) candidate grid of a waterfall."""
-        return find_sync(wf, self.sync_count, num_candidates,
-                         exact=sync_exact)
+    def candidates(self, wf: torch.Tensor) -> dict:
+        """find_sync's (B, K_MAX_CANDIDATES) candidate grid of a
+        waterfall."""
+        return find_sync(wf, self.sync_count)
 
-    def main_pass(self, wf, cand, sel, ap_rows, ap_cw_signs, ldpc_iters):
+    def main_pass(self, wf, cand, sel, ap_rows, ap_cw_signs):
         """LLRs, BP and CRC, the clamp rows and the bank on every
         candidate of the (B, K) grid (`sel` None) or on the flat indices
         `sel` into it (the global budget), scattered back: hard 0, errors
@@ -252,13 +247,12 @@ class WindowDecoder(nn.Module):
         (B, K), ok (B, K))."""
         if sel is None:
             return self._main_and_ap(extract_llrs(wf, cand), cand["score"],
-                                     ap_rows, ap_cw_signs, ldpc_iters)
+                                     ap_rows, ap_cw_signs)
         B, K = cand["score"].shape
         cand_flat = {k: cand[k].reshape(-1)[sel] for k in CAND_KEYS}
         llrs = extract_llrs_flat(wf, cand_flat, sel // K)
         hard, errors, ok = self._main_and_ap(
-            llrs, cand["score"].reshape(-1)[sel], ap_rows, ap_cw_signs,
-            ldpc_iters)
+            llrs, cand["score"].reshape(-1)[sel], ap_rows, ap_cw_signs)
         hard_f = hard.new_zeros((B * K, FT8_LDPC_N))
         hard_f[sel] = hard
         errors_f = errors.new_full((B * K,), FT8_LDPC_M)
@@ -277,7 +271,7 @@ class WindowDecoder(nn.Module):
         return torch.where(failed, cand["score"], -1).reshape(-1), failed
 
     def deep_pass(self, samples, wf, cand, hard, errors, ok, failed, sel_f,
-                  ap_rows, ap_cw_signs, ldpc_iters, timer=NO_TIMER):
+                  ap_rows, ap_cw_signs, timer=NO_TIMER):
         """Refine the selected BP failures (flat indices `sel_f` into the
         (B, K) grid) from the (i, q) `samples`, BP on every rung, merge
         the successes into (hard, errors, ok); the posteriors of the rest
@@ -296,7 +290,7 @@ class WindowDecoder(nn.Module):
             score_sel = cand["score"].reshape(-1)[sel_f]
             hard_r, ok_r, post_r, post_c = self.deep_rungs(
                 llr_ref, llr_pair, llr_coh, was_failed, score_sel, ap_rows,
-                ap_cw_signs, ldpc_iters)
+                ap_cw_signs)
             # sel_f holds each index once, so the writes do not collide
             hard = hard.reshape(B * K, FT8_LDPC_N)
             hard[sel_f] = torch.where(ok_r[:, None], hard_r, hard[sel_f])
@@ -320,7 +314,7 @@ class WindowDecoder(nn.Module):
                         "osd_freq_offset": cand_sel["freq_offset"].to(
                             torch.int32)})
 
-    def _main_and_ap(self, llrs, scores, ap_rows, ap_cw_signs, ldpc_iters,
+    def _main_and_ap(self, llrs, scores, ap_rows, ap_cw_signs,
                      eligible=None):
         """BP of the main pass and, in the same launch, of one clamped
         copy per AP row (rtlsdr_ft8d_tpu/pipeline.py:244-304); a row's
@@ -331,9 +325,9 @@ class WindowDecoder(nn.Module):
         `scores`."""
         if ap_rows:
             hard_all, err_all = self.bp(torch.stack(
-                [llrs] + [apply_clamp(llrs, s) for s in ap_rows]), ldpc_iters)
+                [llrs] + [apply_clamp(llrs, s) for s in ap_rows]))
         else:
-            hard, errors = self.bp(llrs, ldpc_iters)
+            hard, errors = self.bp(llrs)
             hard_all, err_all = hard[None], errors[None]
         if eligible is None:
             eligible = scores >= K_MIN_SCORE
@@ -353,7 +347,7 @@ class WindowDecoder(nn.Module):
         return hard, errors, ok
 
     def deep_rungs(self, llr_ref, llr_pair, llr_coh, was_failed, score_sel,
-                   ap_rows, ap_cw_signs, ldpc_iters=K_LDPC_ITERS):
+                   ap_rows, ap_cw_signs):
         """The deep-decode rung ladder on a flat refined selection
         (rtlsdr_ft8d_tpu/pipeline.py:100-164): BP with the posterior on
         the noncoherent, pair/triple-coherent and block-coherent LLRs and
@@ -366,8 +360,8 @@ class WindowDecoder(nn.Module):
         for signs in ap_rows:
             rungs += [apply_clamp(base, signs)
                       for base in (llr_pair, llr_coh, llr_ref)]
-        hard_all, err_all, post_all = self.bp(
-            torch.stack(rungs), ldpc_iters, return_posterior=True)
+        hard_all, err_all, post_all = self.bp(torch.stack(rungs),
+                                              return_posterior=True)
         ok_all = ((err_all == 0) & crc_check(hard_all, self.crc_mat)
                   & was_failed[None, :])
         hard_r, ok_r = hard_all[0], ok_all[0]
@@ -612,14 +606,10 @@ def _subtract_decoded(i_t, q_t, sub_params):
 
 
 def decode_window(iq, hashes: CallsignHashTable | None = None,
-                  budget: int | None = None,
-                  num_candidates: int = K_MAX_CANDIDATES,
-                  ldpc_iters: int = K_LDPC_ITERS,
-                  sync_exact: bool = False,
-                  passes: int = 1, osd_cands: int = 0, ap_cq: bool = False,
+                  budget: int | None = None, passes: int = 1,
+                  osd_cands: int = 0, ap_cq: bool = False,
                   ap_call: str | None = None, ap_texts=None,
-                  device: str | torch.device = "cuda",
-                  decoder: WindowDecoder | None = None,
+                  device: str | torch.device = "cuda", decoder=None,
                   return_stats: bool = False, timer=None):
     """Decode a batch of channels; returns (per channel) Decode lists.
 
@@ -629,9 +619,11 @@ def decode_window(iq, hashes: CallsignHashTable | None = None,
     decoder's device (the wideband daemon's channel bank), so nothing
     goes through the host. `hashes`: one
     CallsignHashTable or a per-channel list (multiband). `passes`:
-    multipass subtraction decoding. `decoder` reuses a WindowDecoder (and
-    its device): a long-running caller passes one, since building it
-    makes the DFT tables anew; otherwise one is built on `device`.
+    multipass subtraction decoding. `decoder`: any decoder of
+    WindowDecoder.forward's contract, used on its device (a WindowDecoder
+    or parallel/elastic.ElasticDecoder); a long-running caller passes
+    one, since building a WindowDecoder makes the DFT tables anew;
+    otherwise one is built on `device`.
     `ap_cq` / `ap_call`: a-priori clamp hypotheses (universal CQ and/or
     the operator's own callsign, ops/ap.py). `ap_texts`: complete message
     texts (QSO continuations) scored as a codeword bank, or a prebuilt
@@ -687,9 +679,7 @@ def decode_window(iq, hashes: CallsignHashTable | None = None,
             if cw_signs is not None:
                 bank_rows = int((cw_signs != 0).any(-1).sum())
 
-    kw = dict(budget=budget, num_candidates=num_candidates,
-              ldpc_iters=ldpc_iters, sync_exact=sync_exact,
-              osd_cands=osd_cands, ap_clamp_signs=clamp_signs,
+    kw = dict(budget=budget, osd_cands=osd_cands, ap_clamp_signs=clamp_signs,
               ap_cw_signs=cw_signs)
     results, sub_params, out = _decode_pass(decoder, i_t, q_t, hashes,
                                             timer, bank_rows, **kw)
@@ -720,7 +710,7 @@ def decode_window(iq, hashes: CallsignHashTable | None = None,
     with timer.stage("stats"):
         stats = WindowStats(
             channels=B,
-            candidates_scored=len(outs) * B * num_candidates,
+            candidates_scored=len(outs) * B * K_MAX_CANDIDATES,
             candidates_above_min=sum(int(np.sum(o["n_above_min"]))
                                      for o in outs),
             ldpc_converged=sum(int(np.sum(o["n_ldpc_ok"])) for o in outs),

@@ -244,6 +244,35 @@ def test_detailed_deep_decode_spans_and_counters(batch, decoder, unpacked):
     assert c["decode.osd_recovered"] == stats.extra["osd_recovered"]
 
 
+def test_elastic_window_records_the_decode_spans(batch, unpacked):
+    """--wideband --elastic --osd: the daemon's decode step runs
+    decode_window with the ElasticDecoder as its decoder, so the window
+    records the spans and counters every decode records, in one pass."""
+    args = cli.build_parser().parse_args(
+        BASE + ["-n", "1", "--backend", "cpu", "--wideband",
+                "--wideband-channels", "0,1", "--elastic", "--osd", "2",
+                "--multipass", "2"])
+    proc = daemon.WindowProcessor(args, 14_074_000, WindowDecoder())
+    proc.timer = timer = StageTimer(detail=True)
+    iq = tuple(torch.from_numpy(x) for x in batch)
+    with timer.stage("decode"):
+        results, stats = proc._decode_wideband(*iq, None)
+    assert "CQ K1JT FN20" in {d.text for d in results[0]}
+    paths = timer.by_path()
+    assert DECODE_SPANS | {"decode.osd"} == set(paths)
+    for path in ("decode.forward", "decode.download", "decode.unpack",
+                 "decode.osd"):
+        assert paths[path]["count"] == 1
+    c = timer.counters
+    assert c["decode.passes"] == 1 and len(unpacked) == 1
+    assert c["decode.upload_bytes"] == 0       # the channels stay put
+    assert c["decode.survivors"] == int(np.count_nonzero(
+        unpacked[0]["ok"])) >= stats.messages_unique
+    assert c["decode.osd_recovered"] == stats.extra["osd_recovered"]
+    assert stats.extra["mesh_devices"] == 1
+    assert stats.extra["windows_recovered"] == 0
+
+
 def test_stats_multiband_deep_daemon_logs_deep_spans(monkeypatch):
     """run_daemon --stats with --osd 8 --ap --multipass 3 on two bands:
     the window_spans record holds the deep decode's spans and every one
