@@ -82,8 +82,17 @@ failure exits non-zero:
               flavor B both > 0) bit-equal to native ft8_osd_batch, with
               its times, the native calls' and its bound, and the OSD +
               merge ms with the posteriors on the card; the
-              daemon with --ap --osd 8 on 2 bands x 2 windows finds
-              CQ K1JT FN20 in every band with one QSO tracker;
+              daemon with --ap --osd 8 --multipass 3 on 2 bands x 2
+              windows finds CQ K1JT FN20 in every band with one QSO
+              tracker; the busy band's one pass launches no subtraction,
+              the multipass runs do; subtract.cu at the deep cell's shape
+              (one window of its weak traffic, 64 channels, the first
+              pass's ~300 pairs): its refine and residual launches timed
+              beside the plain version on the card and the bound, the
+              host ms of the pair list, the cost of sincosf's slow path,
+              the share of pairs whose start or shift differs from the
+              plain version's, and its residual at the plain version's
+              refinement within 1e-5 of the window's RMS;
   7. wideband the 1500-channel channelizer and the full-band decode: (a)
               channelize and channelize_int8 on the card against the CPU
               on 64 and 480 random frames (rtol, atol 1e-4), the int8
@@ -190,10 +199,14 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # integer operations: 64 INT32 lanes an SM x 132 SMs x 1.98 GHz
 INT32_OPS_PER_S = 16.7e12
-# each kernel's function in the profiler's kernel names
+# each kernel's function in the profiler's kernel names (the subtraction
+# launches two)
 KERNEL_SYMBOLS = {"waterfall": "waterfall_kernel", "sync": "sync_kernel",
                   "llr": "llr_kernel", "bp": "bp_kernel",
-                  "decimate": "decimate_kernel", "osd": "osd_kernel"}
+                  "decimate": "decimate_kernel", "osd": "osd_kernel",
+                  "subtract": ("refine_kernel", "residual_kernel")}
+# phase 6 (h): window 0 of the deep cell's weak traffic at this seed
+SUBTRACT_SEED = 2147600013
 
 
 class Failure(Exception):
@@ -278,6 +291,16 @@ def osd_bound(n_rows, n_runs, depth=24, pair_depth=10):
     t_ops = per_run * n_runs / INT32_OPS_PER_S * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops
             else (t_ops, "integer operations"))
+
+
+def subtract_bound(n_pairs, n_rows):
+    """subtract.cu's bound for n_pairs pairs over (n_rows, 48000)
+    windows: both components in once and the residual out once; 8 FP32
+    operations (two complex products summed) a sample of each of the
+    refinement's 31 variants and 6 a sample of the reconstruction, over
+    79 x 512 samples a pair."""
+    return bound(2 * 2 * n_rows * 48000 * 4,
+                 n_pairs * 79 * 512 * (31 * 8 + 6))
 
 
 def profiled(torch, fn, calls, enough=bool, tries=3, required=True):
@@ -864,11 +887,13 @@ def run_daemon_path(torch, build):
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in build.KERNELS.items()}
     require(rc == 0, f"daemon exited {rc}: {err[-2000:]}")
-    # without --osd the daemon runs every kernel but the OSD's
-    require(launches["osd"] == 0
-            and all(n > 0 for k, n in launches.items() if k != "osd"),
+    # without --osd and with one pass the daemon runs every kernel but
+    # the OSD's and the subtraction's
+    idle = ("osd", "subtract")
+    require(all(launches[k] == 0 for k in idle)
+            and all(n > 0 for k, n in launches.items() if k not in idle),
             f"a kernel was not launched on the daemon path, or the OSD "
-            f"was: {launches}")
+            f"or the subtraction was: {launches}")
     tables = parse_spot_tables(out)
     require(len(tables) == len(DAEMON_BANDS) * DAEMON_WINDOWS,
             f"daemon printed {len(tables)} spot tables")
@@ -1233,6 +1258,7 @@ def run_deep_path(torch, build, dec):
     busy, weak_chans, osd_chans = busy_band_batch()
     allowed = set(BENCH_MSGS) | {WEAK_MSG, OSD_MSG}
     rungs = None
+    subtract_before = build.KERNELS["subtract"].launches
     for name, kw in (("osd", {}),
                      ("osd+ap", dict(ap_cq=True, ap_call=AP_CALL,
                                      ap_texts=ap_bank()))):
@@ -1263,8 +1289,10 @@ def run_deep_path(torch, build, dec):
                     f"(floor 2 at one launch)")
         rungs = cap["rungs"]
     torch.cuda.synchronize()
+    require(build.KERNELS["subtract"].launches == subtract_before,
+            "the busy band's one pass launched the subtraction")
     launches = {n: build.KERNELS[n].launches
-                for n in DECODE_KERNELS + ("osd",)}
+                for n in DECODE_KERNELS + ("osd", "subtract")}
     require(all(n > 0 for n in launches.values()),
             f"a kernel was not launched on the deep path: {launches}")
     rec["launches"] = launches
@@ -1571,11 +1599,207 @@ def check_osd_kernel(torch, out):
     return rec
 
 
+def weak_window(seed=SUBTRACT_SEED):
+    """Window 0 of the deep cell's `weak` traffic at 64 channels
+    (benchmark/traffic/weak.json through benchmark/generators/qso_ft8.py,
+    rendered on the card): host float32 (i, q)."""
+    sys.path.insert(0, os.path.join(ROOT, "benchmark"))
+    try:
+        import registry
+
+        p = registry.traffic("weak")
+        return registry.generator(p["generator"]).generate(
+            p, seed, "cuda", channels=B)["windows"][0]
+    finally:
+        sys.path.remove(os.path.join(ROOT, "benchmark"))
+
+
+def check_subtract(torch, dec):
+    """Phase 6 (h): csrc/subtract.cu at the deep cell's shape. One weak
+    window (64 channels) decoded as the deep cell does (3 passes, --osd
+    8, CQ and K1ABC clamp rows) launches the kernel twice a subtraction;
+    on the first subtraction's operands (the first pass's pairs): the
+    host ms of the pair list (the LDPC encodes), the CUDA-event ms of
+    the refine and residual launches, of both (subtract_pairs) and of the
+    refine launch with every tone-0 at 100 Hz (no sincosf argument past
+    1e5 rad: the cost of its slow path), their device ms, the plain
+    version's ms on the card and the bound; against refine_pairs on the
+    card, the arithmetic of the benchmark's reference (and on the CPU),
+    the share of pairs whose start or shift differs (at most 1%), and
+    where they agree f + f_err within one float, f_err within 1e-4
+    relative (1e-5 Hz near 0), the gains within 1e-4 relative where f +
+    f_err is the same float and 5e-3 where it is one apart; the phases
+    bit-equal to PyTorch's cumsum at the kernel's f_err; the residual
+    launch at the plain refinement within 1e-5 of the window's RMS of
+    reconstruct's residual, and the whole kernel path within 1e-5 of it
+    on the channels whose pairs all agree to the float."""
+    from rtlsdr_ft8d_tpu_torch import pipeline
+    from rtlsdr_ft8d_tpu_torch.ops import subtract
+    from rtlsdr_ft8d_tpu_torch.protocol.text import CallsignHashTable
+
+    i_w, q_w = weak_window()
+    seen = []
+    real = pipeline._subtract_decoded
+
+    def spy(i_t, q_t, sub_params, timer=pipeline.NO_TIMER):
+        seen.append((i_t, q_t, [list(p) for p in sub_params]))
+        return real(i_t, q_t, sub_params, timer)
+
+    before = subtract.KERNEL.launches
+    pipeline._subtract_decoded = spy
+    try:
+        pipeline.decode_window(
+            (i_w, q_w), hashes=[CallsignHashTable() for _ in range(B)],
+            passes=3, osd_cands=OSD_CANDS, ap_cq=True, ap_call=AP_CALL,
+            decoder=dec)
+    finally:
+        pipeline._subtract_decoded = real
+    torch.cuda.synchronize()
+    launches = subtract.KERNEL.launches - before
+    require(seen and launches == 2 * len(seen),
+            f"weak window: {len(seen)} subtractions, {launches} launches")
+    i_t, q_t, sub = seen[0]
+    encode = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pairs_np = pipeline.subtraction_pairs(sub)
+        encode.append((time.perf_counter() - t0) * 1e3)
+    encode_ms = statistics.median(encode)
+    n = len(pairs_np[0])
+    cpu = [torch.from_numpy(a) for a in pairs_np]
+    card = [t.to(i_t.device) for t in cpu]
+    low = card[:2] + [torch.full_like(card[2], round((100 - 21.875) / 3.125)),
+                      card[3]]
+    fit = subtract.refine_pairs_cuda(i_t, q_t, *card)
+    fns = {"refine": lambda: subtract.refine_pairs_cuda(i_t, q_t, *card),
+           "residual": lambda: subtract.reconstruct_cuda(i_t, q_t, *card[:3],
+                                                         fit),
+           "subtract_pairs": lambda: subtract.subtract_pairs(i_t, q_t, *card),
+           "refine_low_tones": lambda: subtract.refine_pairs_cuda(
+               i_t, q_t, *low)}
+    ms = {k: median_ms(torch, fn) for k, fn in fns.items()}
+    symbols = dict(zip(("refine", "residual"), KERNEL_SYMBOLS["subtract"]))
+    dev_ms = {k: device_ms(torch, fns[k], sym, required=False)
+              for k, sym in symbols.items()}
+    dev_ms["refine_low_tones"] = device_ms(
+        torch, fns["refine_low_tones"], symbols["refine"], required=False)
+
+    def plain():
+        f = subtract.refine_pairs(i_t, q_t, *card)
+        return subtract.reconstruct(i_t, q_t, *card[:3], f)
+
+    ms["plain"] = median_ms(torch, plain, reps=3, calls=1, warmup=1)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        real(i_t, q_t, sub)
+    torch.cuda.synchronize()
+    span_ms = (time.perf_counter() - t0) / 3 * 1e3
+
+    # the plain version on the card is what the benchmark's reference runs
+    want = subtract.refine_pairs(i_t, q_t, *card)
+    got = fit.choice.long()
+    differ = (got != want.choice).any(-1).cpu()
+    on_cpu = subtract.refine_pairs(i_t.cpu(), q_t.cpu(), *cpu)
+    differ_cpu = (got.cpu() != on_cpu.choice).any(-1)
+    agree = ~differ
+    f_hz = subtract._freqs(card[1], card[2])
+    f2, f2_want = (f_hz + p.fit[:, 0, None] for p in (fit, want))
+    ulps = (f2.view(torch.int32) - f2_want.view(torch.int32)).abs() \
+        .amax(-1).cpu()
+    alike = agree & (ulps == 0)
+    d_f = (fit.fit[:, 0] - want.fit[:, 0]).abs().cpu()
+    f_err_excess = d_f - 1e-4 * want.fit[:, 0].abs().cpu()
+    g, g_want = fit.fit[:, 1:].cpu(), want.fit[:, 1:].cpu()
+    rel = (g - g_want).norm(dim=-1) / g_want.norm(dim=-1)
+
+    def worst(t, mask):
+        return t[mask].max().item() if mask.any() else 0.0
+
+    gain_rel, gain_rel_ulp = worst(rel, alike), worst(rel, agree)
+    f_err_hz = worst(d_f, agree)
+    # the phases against PyTorch's cumsum on the card at the kernel's
+    # f_err, over more than 64 rows, where the kernel follows its order
+    k = -(-65 // max(n, 1))
+    phase_equal = torch.equal(fit.phase0,
+                              subtract._phase0(torch.cat([f2] * k))[:n])
+    ref = subtract.reconstruct(i_t, q_t, *card[:3], want)
+    stage = subtract.reconstruct_cuda(i_t, q_t, *card[:3], want)
+    full = subtract.subtract_pairs(i_t, q_t, *card)
+    rms = torch.sqrt(torch.mean(i_t ** 2 + q_t ** 2) / 2).item()
+    stage_err = max((a - b).abs().max().item()
+                    for a, b in zip(stage, ref)) / rms
+    full_err = max((a - b).abs().max().item()
+                   for a, b in zip(full, ref)) / rms
+    # the whole path on the channels whose pairs all agree with the plain
+    # refinement, f + f_err to the float
+    keep = torch.ones(i_t.shape[0], dtype=torch.bool)
+    keep[cpu[0][~alike].long()] = False
+    keep = keep.to(i_t.device)
+    full_err_alike = max((a - b)[keep].abs().max().item()
+                         for a, b in zip(full, ref)) / rms \
+        if keep.any() else 0.0
+    bound_ms, by = subtract_bound(n, i_t.shape[0])
+    counts = np.bincount(pairs_np[0], minlength=i_t.shape[0])
+    rec = {"pairs": n, "pairs_max_per_channel": int(counts.max()),
+           "pairs_later": [sum(min(len(p), pipeline.MAX_SUBTRACT)
+                               for p in s) for _, _, s in seen[1:]],
+           "launches_per_window": launches, "encode_host_ms": encode_ms,
+           "subtract_decoded_ms": span_ms, "ms": ms, "device_ms": dev_ms,
+           "bound_ms": bound_ms, "bound_by": by,
+           "differ_share": differ.double().mean().item(),
+           "differ_share_cpu_plain": differ_cpu.double().mean().item(),
+           "f_plus_f_err_one_float_apart": int((agree & (ulps == 1)).sum()),
+           "gain_max_rel_err": gain_rel,
+           "gain_max_rel_err_one_float_apart": gain_rel_ulp,
+           "f_err_max_abs_hz": f_err_hz, "phase0_bit_equal": phase_equal,
+           "residual_stage_err_rms": stage_err,
+           "full_path_err_rms": full_err,
+           "full_path_err_rms_alike_channels": full_err_alike}
+    say("deep", f"subtract.cu, weak window seed {SUBTRACT_SEED}: {n} pairs "
+        f"(at most {rec['pairs_max_per_channel']} a channel; later "
+        f"subtractions {rec['pairs_later']}), {launches} launches a window; "
+        f"refine {ms['refine']:.4f} ms (device "
+        f"{fmt_ms(dev_ms['refine'])}), residual {ms['residual']:.4f} "
+        f"({fmt_ms(dev_ms['residual'])}), both {ms['subtract_pairs']:.4f}; "
+        f"refine with tones at 100 Hz {ms['refine_low_tones']:.4f} "
+        f"({fmt_ms(dev_ms['refine_low_tones'])}); plain on the card "
+        f"{ms['plain']:.2f} ms; bound {bound_ms:.4f} ms ({by}); pair list "
+        f"(encodes) {encode_ms:.2f} ms host, _subtract_decoded "
+        f"{span_ms:.2f} ms; start or shift differs from the plain "
+        f"version's on {differ.sum().item()} of {n} pairs (on the CPU "
+        f"{differ_cpu.sum().item()}); where they agree f + f_err one float "
+        f"apart on {rec['f_plus_f_err_one_float_apart']}, gains within "
+        f"{gain_rel:.2e} relative ({gain_rel_ulp:.2e} with those), f_err "
+        f"within {f_err_hz:.2e} Hz; phases bit-equal to PyTorch's cumsum: "
+        f"{phase_equal}; residual launch at the plain refinement "
+        f"{stage_err:.2e} of RMS from the plain residual, whole path "
+        f"{full_err:.2e} ({full_err_alike:.2e} on the channels whose pairs "
+        f"all agree)")
+    require(differ.double().mean().item() <= 0.01,
+            f"subtract.cu: start or shift differs on {differ.sum().item()} "
+            f"of {n} pairs")
+    require(worst(ulps.double(), agree) <= 1,
+            f"subtract.cu: f + f_err {worst(ulps.double(), agree)} floats "
+            f"from the plain version's")
+    require(worst(f_err_excess, agree) <= 1e-5,
+            f"subtract.cu: f_err {f_err_hz:.2e} Hz from the plain version's")
+    require(gain_rel <= 1e-4 and gain_rel_ulp <= 5e-3,
+            f"subtract.cu: gains {gain_rel:.2e} relative ({gain_rel_ulp:.2e} "
+            f"where f + f_err is one float apart)")
+    require(phase_equal, "subtract.cu: phases differ from PyTorch's cumsum")
+    require(stage_err <= 1e-5, f"subtract.cu residual {stage_err:.2e} of "
+            f"the window's RMS from reconstruct's")
+    require(full_err_alike <= 1e-5, f"subtract.cu whole path "
+            f"{full_err_alike:.2e} of the window's RMS from the plain path's")
+    return rec
+
+
 def run_deep_daemon(torch, build):
-    """Phase 6 (e): the daemon with --ap --osd 8 on two bands x two
-    synthetic windows through the int8 ingest: CQ K1JT FN20 in every
-    band's spots of both windows, one QsoTracker fed once a window with
-    every band's decodes, every kernel launched in that run."""
+    """Phase 6 (e): the daemon with --ap --osd 8 --multipass 3 on two
+    bands x two synthetic windows through the int8 ingest: CQ K1JT FN20
+    in every band's spots of both windows, one QsoTracker fed once a
+    window with every band's decodes, every kernel launched in that run
+    (the subtraction's too)."""
     from rtlsdr_ft8d_tpu_torch.host import daemon
     from rtlsdr_ft8d_tpu_torch.host.cli import BAND_PLAN
 
@@ -1594,7 +1818,7 @@ def run_deep_daemon(torch, build):
         rc, out, err = run_cli(bands + [
             "-c", AP_CALL, "-l", "FN42", "--synthetic", "-n",
             str(DAEMON_WINDOWS), "--pallas-ingest", "--ap", "--osd",
-            str(OSD_CANDS), "-x"])
+            str(OSD_CANDS), "--multipass", "3", "-x"])
     finally:
         daemon.QsoTracker.observe = real
     torch.cuda.synchronize()
@@ -1621,7 +1845,7 @@ def run_deep_daemon(torch, build):
             f"{DAEMON_WINDOWS} windows, {SPOT} counts "
             f"{[texts.count(SPOT) for _, texts in trackers]}")
     say("deep", f"daemon {' '.join(bands)} --ap --osd {OSD_CANDS} "
-        f"--pallas-ingest, {DAEMON_WINDOWS} windows: {SPOT} in all "
+        f"--multipass 3 --pallas-ingest, {DAEMON_WINDOWS} windows: {SPOT} in all "
         f"{n_tables} spot tables, one QsoTracker fed once a window with "
         f"every band's decodes; launches {launches}")
     return launches
@@ -2802,7 +3026,7 @@ def main() -> int:
     from rtlsdr_ft8d_tpu_torch.pipeline import WindowDecoder, normalize_peak
 
     build.load()
-    require(len(build.KERNELS) == 6, f"kernels: {sorted(build.KERNELS)}")
+    require(len(build.KERNELS) == 7, f"kernels: {sorted(build.KERNELS)}")
     say("build", f"{os.path.relpath(path, ROOT)} ({len(build.KERNELS)} "
         f"kernels) in {secs:.1f} s, nvcc {' '.join(build.NVCC_FLAGS)}; "
         f"{os.path.relpath(native_path, ROOT)} in {native_secs:.1f} s; "
@@ -2855,6 +3079,7 @@ def main() -> int:
     # 6. the deep decode and the AP stack, with the launch counts of
     # exactly that run
     deep, rungs, busy = run_deep_path(torch, build, dec)
+    rec["subtract"] = check_subtract(torch, dec)
     with torch.no_grad():
         rec["bp"]["ms_by_shape"]["rungs " + "x".join(
             str(n) for n in rungs.shape[:-1]) + " posterior"] = \

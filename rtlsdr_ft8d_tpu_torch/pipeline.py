@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .host.log import NO_TIMER, WindowStats
-from .ops import build, tables
+from .ops import build, subtract, tables
 from .ops.ap import (apply_clamp, bank_correlate, clamp_row_cq,
                      clamp_row_to_call, codeword_signs)
 from .ops.ldpc import bp_decode, crc_check
@@ -581,28 +581,45 @@ def ap_tensors(ap_cq: bool, ap_call: str | None, ap_texts, device):
 MAX_SUBTRACT = 16       # signals subtracted per channel and pass (MAXM)
 
 
-def _subtract_decoded(i_t, q_t, sub_params):
-    """Rebuild and subtract up to MAX_SUBTRACT decoded signals per channel
-    (rtlsdr_ft8d_tpu/pipeline.py:621-641)."""
-    from .ops.subtract import subtract_signals
+def subtraction_pairs(sub_params):
+    """Up to MAX_SUBTRACT decoded signals per channel (per-channel lists
+    of (bits91, freq2, time2)) as the flat list of P pairs in (channel,
+    message) order: int32 arrays chan (P,), tones (P, 79), fbin2 (P,)
+    and start2 (P,)."""
     from .protocol.encode import codeword_to_tones, ldpc_encode
 
-    B = i_t.shape[0]
-    tones = np.zeros((B, MAX_SUBTRACT, 79), np.int32)
-    fbin2 = np.zeros((B, MAX_SUBTRACT), np.int32)
-    start2 = np.zeros((B, MAX_SUBTRACT), np.int32)
-    valid = np.zeros((B, MAX_SUBTRACT), bool)
-    for b, params in enumerate(sub_params):
-        for m, (bits91, fb2, st2) in enumerate(params[:MAX_SUBTRACT]):
-            tones[b, m] = codeword_to_tones(ldpc_encode(bits91))
-            fbin2[b, m] = fb2
-            start2[b, m] = st2
-            valid[b, m] = True
-    dev = i_t.device
+    pairs = [(b, p) for b, params in enumerate(sub_params)
+             for p in params[:MAX_SUBTRACT]]
+    P = len(pairs)
+    chan = np.zeros(P, np.int32)
+    tones = np.zeros((P, 79), np.int32)
+    fbin2 = np.zeros(P, np.int32)
+    start2 = np.zeros(P, np.int32)
+    for j, (b, (bits91, fb2, st2)) in enumerate(pairs):
+        chan[j], fbin2[j], start2[j] = b, fb2, st2
+        tones[j] = codeword_to_tones(ldpc_encode(bits91))
+    return chan, tones, fbin2, start2
+
+
+def _subtract_decoded(i_t, q_t, sub_params, timer=NO_TIMER):
+    """Rebuild and subtract up to MAX_SUBTRACT decoded signals per channel
+    (rtlsdr_ft8d_tpu/pipeline.py:621-641) as subtraction_pairs' pairs,
+    uploaded in one copy. A detailed `timer` counts the pairs
+    (subtract_pairs) and the kernel's launches (launches.subtract: 2 on
+    a card, 0 on the CPU)."""
+    chan, tones, fbin2, start2 = subtraction_pairs(sub_params)
+    P = chan.shape[0]
+    before = subtract.KERNEL.launches
     with torch.no_grad():
-        return subtract_signals(
-            i_t, q_t, *(torch.from_numpy(a).to(dev)
-                        for a in (tones, fbin2, start2, valid)))
+        ops = torch.from_numpy(np.concatenate(
+            [chan, fbin2, start2, tones.ravel()])).to(i_t.device)
+        i_t, q_t = subtract.subtract_pairs(
+            i_t, q_t, ops[:P], ops[3 * P:].view(P, 79), ops[P:2 * P],
+            ops[2 * P:3 * P])
+    if timer.detail:
+        timer.count("subtract_pairs", P)
+        timer.count("launches.subtract", subtract.KERNEL.launches - before)
+    return i_t, q_t
 
 
 def decode_window(iq, hashes: CallsignHashTable | None = None,
@@ -647,8 +664,9 @@ def decode_window(iq, hashes: CallsignHashTable | None = None,
     bank's non-zero rows) and, with osd_cands > 0, deep_rows (the deep
     decode's selection), osd_candidates (the rows handed to the OSD,
     both flavors), osd_device_rows (those of them reprocessed on a card)
-    and osd_recovered; the spans and counters of every
-    pass add under the same names.
+    and osd_recovered, and with passes > 1 subtract_pairs (the decoded
+    pairs subtracted) and launches.subtract; the spans and counters of
+    every pass add under the same names.
     """
     if timer is None:
         timer = NO_TIMER
@@ -692,7 +710,7 @@ def decode_window(iq, hashes: CallsignHashTable | None = None,
         if not any(sub_params):
             break
         with timer.stage("subtract", device=dev):
-            i_t, q_t = _subtract_decoded(i_t, q_t, sub_params)
+            i_t, q_t = _subtract_decoded(i_t, q_t, sub_params, timer)
         res2, sub_params, out2 = _decode_pass(decoder, i_t, q_t, hashes,
                                               timer, bank_rows, **kw)
         outs.append(out2)

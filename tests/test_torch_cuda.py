@@ -17,12 +17,19 @@ deep decode's stacked rungs, and the deep decode's PyTorch stages
 (refinement, the codeword bank) on the card against the CPU; the
 channelizer on the card against the CPU and across odd chunks, the
 decode of a device-resident (1500, 48000) batch with no host copy of
-its I/Q, and the waterfall and sync kernels at B = 1500. Holds as in
+its I/Q, and the waterfall and sync kernels at B = 1500; the subtraction
+kernel's two launches against the plain refine_pairs and reconstruct on
+the card, stage by stage, at 0, 1, 16 and ~300 pairs. Holds as in
 chip_smoke.py: waterfall <= 1 step on < 0.1% of cells, sync / s2 / BP
 bit-exact, LLRs within 1e-5, the int8 decimator within rtol 1e-4,
 atol 1e-5 of its plain version; refined LLRs within 1e-3 of the CPU's
 (cuBLAS and the CPU sum the basis products in other orders), the
-channelizer within rtol 1e-4, atol 1e-4 of the CPU's.
+channelizer within rtol 1e-4, atol 1e-4 of the CPU's; the subtraction's
+start and shift equal to the plain version's on the multipass scenes
+(on 99% of the deep cell's pairs), its f_err and gains within 1e-4
+relative (sums in another order), its start phases bit-equal to
+PyTorch's cumsum on the card at its own f_err, and its residual at the
+same refinement within 1e-5 of the window's RMS.
 """
 
 import os
@@ -31,14 +38,18 @@ import numpy as np
 import pytest
 import torch
 
+from rtlsdr_ft8d_tpu_torch import pipeline
 from rtlsdr_ft8d_tpu_torch.host.io import read_iq
+from rtlsdr_ft8d_tpu_torch.host.synth import (synthesize_message,
+                                              synthesize_tones)
 from rtlsdr_ft8d_tpu_torch.ops import (ap, build, channelize, decimate,
-                                       ldpc, llr, refine, sync, tables,
-                                       waterfall)
+                                       ldpc, llr, refine, subtract, sync,
+                                       tables, waterfall)
 from rtlsdr_ft8d_tpu_torch.pipeline import (WindowDecoder, decode_window,
                                             normalize_peak)
 from rtlsdr_ft8d_tpu_torch.protocol.crc import add_crc
-from rtlsdr_ft8d_tpu_torch.protocol.encode import ldpc_encode
+from rtlsdr_ft8d_tpu_torch.protocol.encode import encode, ldpc_encode
+from rtlsdr_ft8d_tpu_torch.protocol.pack import pack77
 
 pytestmark = pytest.mark.cuda
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
@@ -469,3 +480,170 @@ def test_waterfall_and_sync_at_full_band(dec):
     want_v1, want_gidx = sync.chunk_survivors(sync.sync_scores_plain(wf,
                                                                      count))
     assert torch.equal(v1, want_v1) and torch.equal(gidx, want_gidx)
+
+
+def _multipass_scene(name):
+    """tests/test_torch_subtract.py's scenes: a strong burst over a 23 dB
+    weaker one at overlapping tones, or one burst in noise."""
+    if name == "clean":
+        return synthesize_message("CQ K1JT FN20", f0_hz=700.0, amplitude=0.5,
+                                  noise_sigma=0.1,
+                                  rng=np.random.default_rng(9))
+    rng = np.random.default_rng(7)
+    return (synthesize_message("CQ K1JT FN20", f0_hz=500.0, amplitude=0.5)
+            + synthesize_message("K1ABC W9XYZ EN37", f0_hz=506.25,
+                                 amplitude=0.035)
+            + 0.004 * (rng.standard_normal(48000)
+                       + 1j * rng.standard_normal(48000))
+            ).astype(np.complex64)
+
+
+SUB_TEXTS = ["CQ K1JT FN20", "K1ABC W9XYZ EN37", "W9XYZ K1ABC -11",
+             "K1ABC W9XYZ R-09", "W9XYZ K1ABC RRR", "CQ DX W9XYZ EN37",
+             "K1ABC W9XYZ RR73", "DE VA2GKA FN35", "QRZ K9AN EN50"]
+
+
+def _subtract_scene(counts, seed):
+    """Windows of white noise (sigma 1), channel b holding counts[b]
+    bursts in distinct 50-Hz slots of 100-1,500 Hz, up to 3 Hz and 0-1.5 s
+    off the grid, at -20..+5 dB in 2,500 Hz; and their pairs in (channel,
+    message) order on the grid as unpack_survivors gives them."""
+    rng = np.random.default_rng(seed)
+    B = len(counts)
+    x = rng.standard_normal((B, 48000)) + 1j * rng.standard_normal(
+        (B, 48000))
+    chan, tones, fb2, st2 = [], [], [], []
+    for b, count in enumerate(counts):
+        for slot in rng.choice(28, size=count, replace=False):
+            f0 = 100.0 + 50.0 * slot + rng.uniform(-3.0, 3.0)
+            start = int(rng.integers(0, 4800))
+            amp = np.sqrt(2 * 2500 / 3200 * 10 ** (rng.uniform(-20, 5) / 10))
+            t = encode(pack77(SUB_TEXTS[int(rng.integers(len(SUB_TEXTS)))]))
+            x[b] += synthesize_tones(t, f0_hz=f0, start_sample=start,
+                                     amplitude=amp)
+            chan.append(b)
+            tones.append(t)
+            fb2.append(int(round((f0 - 21.875) / 3.125)))
+            st2.append(int(round(start / 256)))
+    pairs = (np.array(chan, np.int32), np.array(tones, np.int32).reshape(
+        -1, 79), np.array(fb2, np.int32), np.array(st2, np.int32))
+    return (torch.from_numpy(x.real.astype(np.float32)),
+            torch.from_numpy(x.imag.astype(np.float32)),
+            [torch.from_numpy(a) for a in pairs])
+
+
+def _scene_pairs(dec, name):
+    """(i, q) on the CPU and the pairs of the port's own first pass on the
+    card (multipass scenes) or of _subtract_scene."""
+    if name in ("masked", "clean"):
+        iq = _multipass_scene(name)
+        i_s = torch.from_numpy(np.real(iq)[None].astype(np.float32))
+        q_s = torch.from_numpy(np.imag(iq)[None].astype(np.float32))
+        _, sub, _ = pipeline._decode_pass(dec, i_s.cuda(), q_s.cuda(), None,
+                                          pipeline.NO_TIMER)
+        return i_s, q_s, [torch.from_numpy(a)
+                          for a in pipeline.subtraction_pairs(sub)]
+    counts = {"sixteen": [16], "one": [1], "none": [0, 0],
+              "deep": np.random.default_rng(11).integers(2, 8, 64)}[name]
+    return _subtract_scene(list(counts), seed=len(counts))
+
+
+PHASE_SCAN_CHECKED_ON = "PyTorch 2.11.0+cu128 (CUDA 12.8), H100"
+
+
+def _over_65_rows(fn, *rows):
+    """fn over the pairs repeated to more than 64 rows, its rows for the
+    pairs: on the card PyTorch's cumsum over rows of 79 sums in the
+    order the kernel follows from 65 rows on (the padded (B, 16, 79)
+    layout of the JAX package's function from 5 channels on), in
+    another below."""
+    k = -(-65 // max(rows[0].shape[0], 1))
+    out = fn(*(torch.cat([r] * k) for r in rows))
+    return type(out)(*(t[:rows[0].shape[0]] for t in out)) \
+        if isinstance(out, tuple) else out[:rows[0].shape[0]]
+
+
+@pytest.mark.parametrize("scene", ["masked", "clean", "sixteen", "deep"])
+def test_subtract_refine_equals_plain(dec, scene):
+    """The refine launch against refine_pairs on the card: the same start
+    and shift on every pair of the multipass scenes and of 16 bursts
+    (one pair in a hundred may differ at the deep cell's ~300, where two
+    shifts come within rounding of each other); where they agree f_err
+    within 1e-4 relative (1e-5 Hz near 0) and f + f_err equal to
+    rounding, and the gains within 1e-4 relative where f + f_err rounds
+    alike, within 5e-3 where it rounds to the next float (a 1.2e-4 Hz
+    step drifts the phase ~0.01 rad over the window); the start phases
+    bit-equal to PyTorch's on the card at the kernel's own f_err (the
+    kernel emulates torch.cumsum's scan on the card, checked on
+    PHASE_SCAN_CHECKED_ON)."""
+    i_s, q_s, pairs = _scene_pairs(dec, scene)
+    x = (i_s.cuda(), q_s.cuda())
+    card = [p.cuda() for p in pairs]
+    want = _over_65_rows(lambda *p: subtract.refine_pairs(*x, *p), *card)
+    before = subtract.KERNEL.launches
+    got = subtract.refine_pairs_cuda(*x, *card)
+    assert subtract.KERNEL.launches == before + 1
+    same = (got.choice.long() == want.choice).all(-1)
+    assert same.double().mean().item() >= (0.99 if scene == "deep" else 1)
+    torch.testing.assert_close(got.fit[same, 0], want.fit[same, 0],
+                               rtol=1e-4, atol=1e-5)
+    f_hz = subtract._freqs(card[1], card[2])
+    f2, f2_want = (f_hz + fit[:, 0, None] for fit in (got.fit, want.fit))
+    ulps = (f2.view(torch.int32) - f2_want.view(torch.int32)).abs()
+    assert ulps[same].max().item() <= 1
+    g, g_want = got.fit[:, 1:], want.fit[:, 1:]
+    rel = (g - g_want).norm(dim=-1) / g_want.norm(dim=-1)
+    alike = same & (ulps == 0).all(-1)
+    if alike.any():
+        assert rel[alike].max().item() <= 1e-4
+    assert rel[same].max().item() <= 5e-3
+    assert torch.equal(got.phase0,
+                       _over_65_rows(lambda f: subtract._phase0(f), f2)), \
+        f"phases differ from torch.cumsum's on PyTorch {torch.__version__} " \
+        f"(bit-equal on {PHASE_SCAN_CHECKED_ON})"
+
+
+@pytest.mark.parametrize("scene", ["none", "one", "sixteen", "deep"])
+def test_subtract_residual_equals_plain(dec, scene):
+    """The residual launch against reconstruct on the card, both at the
+    plain refinement: within 1e-5 of the window's RMS at 0, 1, 16 and
+    ~300 pairs (the deep cell's shape, 64 channels); channels with no
+    pair come back unchanged. subtract_pairs launches the kernel
+    twice."""
+    i_s, q_s, pairs = _scene_pairs(dec, scene)
+    x = (i_s.cuda(), q_s.cuda())
+    card = [p.cuda() for p in pairs]
+    fit = subtract.refine_pairs(*x, *card)
+    want = subtract.reconstruct(*x, *card[:3], fit)
+    got = subtract.reconstruct_cuda(*x, *card[:3], fit)
+    rms = torch.sqrt(torch.mean(i_s ** 2 + q_s ** 2) / 2).item()
+    empty = sorted(set(range(i_s.shape[0])) - set(pairs[0].tolist()))
+    for g, w, orig in zip(got, want, (i_s, q_s)):
+        assert (g - w).abs().max().item() <= 1e-5 * rms
+        assert torch.equal(g.cpu()[empty], orig[empty])
+    before = subtract.KERNEL.launches
+    out = subtract.subtract_pairs(*x, *card)
+    assert subtract.KERNEL.launches == before + (2 if len(pairs[0]) else 0)
+    assert out[0].shape == i_s.shape and torch.isfinite(out[0]).all()
+    if scene == "deep":
+        assert 250 <= len(pairs[0]) <= 350
+
+
+def test_subtract_operand_checks(dec):
+    x = torch.zeros((2, 48000), device="cuda")
+    pairs = [torch.zeros(1, dtype=torch.int32, device="cuda"),
+             torch.zeros((1, 79), dtype=torch.int32, device="cuda"),
+             torch.zeros(1, dtype=torch.int32, device="cuda"),
+             torch.zeros(1, dtype=torch.int32, device="cuda")]
+    with pytest.raises(ValueError):
+        subtract.subtract_pairs(x[:, :40000], x[:, :40000], *pairs)
+    with pytest.raises(ValueError):
+        subtract.subtract_pairs(x, x, pairs[0], pairs[1][:, :78], *pairs[2:])
+    with pytest.raises(TypeError):
+        subtract.subtract_pairs(x.double(), x.double(), *pairs)
+    backwards = [torch.tensor([1, 0], dtype=torch.int32),
+                 torch.zeros((2, 79), dtype=torch.int32),
+                 torch.zeros(2, dtype=torch.int32),
+                 torch.zeros(2, dtype=torch.int32)]
+    with pytest.raises(ValueError, match="ascend"):
+        subtract.subtract_pairs(x, x, *backwards)

@@ -15,8 +15,9 @@
    pack77 and unpack77 over the message forms of tests/test_pack_unpack.py,
    batched spot unpack, synthesized samples for a fixed seed, the AP
    gate's constants and clamp rows, OSD's encoding matrix, flip-pair
-   order and CRC matrix, and the channelizer's constants, bank, DFT bases
-   and twiddle (the last three in tests/test_torch_channelize.py).
+   order and CRC matrix, the channelizer's constants, bank, DFT bases
+   and twiddle (the last three in tests/test_torch_channelize.py), and
+   the subtraction's constants.
 """
 
 import ast
@@ -35,6 +36,7 @@ from rtlsdr_ft8d_tpu.ops import ap as ref_ap
 from rtlsdr_ft8d_tpu.ops import channelize as ref_channelize
 from rtlsdr_ft8d_tpu.ops import ldpc as ref_ldpc
 from rtlsdr_ft8d_tpu.ops import osd as ref_osd
+from rtlsdr_ft8d_tpu.ops import subtract as ref_subtract
 from rtlsdr_ft8d_tpu.pipeline import ap_prefix_for_call as ref_prefix
 from rtlsdr_ft8d_tpu.protocol import constants as ref_constants
 from rtlsdr_ft8d_tpu.protocol import crc as ref_crc
@@ -44,7 +46,7 @@ from rtlsdr_ft8d_tpu.protocol import parity_tables as ref_parity
 from rtlsdr_ft8d_tpu.protocol import text as ref_text
 from rtlsdr_ft8d_tpu.protocol import unpack as ref_unpack
 from rtlsdr_ft8d_tpu_torch.host import cli, io, synth
-from rtlsdr_ft8d_tpu_torch.ops import ap, channelize, osd
+from rtlsdr_ft8d_tpu_torch.ops import ap, channelize, osd, subtract
 from rtlsdr_ft8d_tpu_torch.pipeline import ap_prefix_for_call
 from rtlsdr_ft8d_tpu_torch.protocol import (constants, crc, encode, pack,
                                             parity_tables, text, unpack)
@@ -145,18 +147,20 @@ def _public(module):
     return sorted(n for n in vars(module) if n.isupper())
 
 
-# the upper-case names a copied module adds to its original's: the handle
-# of the OSD kernel (csrc/osd.cu), which the JAX package does not have
-PORT_NAMES = {"osd": {"KERNEL"}}
+# the upper-case names a copied module adds to its original's: the handles
+# of the OSD and subtraction kernels (csrc/osd.cu, csrc/subtract.cu), which
+# the JAX package does not have
+PORT_NAMES = {"osd": {"KERNEL"}, "subtract": {"KERNEL"}}
 
 
 @pytest.mark.parametrize("mine,ref", [(constants, ref_constants),
                                       (parity_tables, ref_parity),
                                       (text, ref_text), (ap, ref_ap),
                                       (osd, ref_osd),
-                                      (channelize, ref_channelize)],
+                                      (channelize, ref_channelize),
+                                      (subtract, ref_subtract)],
                          ids=["constants", "parity_tables", "text", "ap",
-                              "osd", "channelize"])
+                              "osd", "channelize", "subtract"])
 def test_tables_equal(mine, ref):
     extra = PORT_NAMES.get(mine.__name__.rsplit(".", 1)[-1], set())
     assert _public(mine) == sorted(set(_public(ref)) | extra)

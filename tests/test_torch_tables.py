@@ -20,7 +20,8 @@ from rtlsdr_ft8d_tpu.ops import ldpc as jldpc
 from rtlsdr_ft8d_tpu.ops import refine as jrefine
 from rtlsdr_ft8d_tpu.ops import sync as jsync
 from rtlsdr_ft8d_tpu.ops import waterfall as jwf
-from rtlsdr_ft8d_tpu_torch.ops import build, decimate, osd, tables
+from rtlsdr_ft8d_tpu_torch.ops import (build, decimate, osd, subtract,
+                                       tables)
 from rtlsdr_ft8d_tpu_torch.pipeline import WindowDecoder
 
 from .torch_cpu import few_torch_threads  # noqa: F401
@@ -106,8 +107,8 @@ def test_dispatch_rule():
 
 
 def test_cpu_tensors_never_launch_a_kernel():
-    assert sorted(build.KERNELS) == ["bp", "decimate", "llr", "osd", "sync",
-                                     "waterfall"]
+    assert sorted(build.KERNELS) == ["bp", "decimate", "llr", "osd",
+                                     "subtract", "sync", "waterfall"]
     for k in build.KERNELS.values():
         k.launches = 0
     rng = np.random.default_rng(0)
@@ -118,12 +119,17 @@ def test_cpu_tensors_never_launch_a_kernel():
         dec(x, y)
         dec(x, y, budget=64)
     osd.osd_rows(torch.zeros((2, 174)), torch.ones((2, 174)))
+    valid = torch.zeros((2, 16), dtype=torch.bool)
+    valid[1, :2] = True
+    subtract.subtract_signals(x, y, torch.zeros((2, 16, 79), dtype=torch.int32),
+                              torch.full((2, 16), 300), torch.ones((2, 16)),
+                              valid)
     i8, q8 = rng.integers(-128, 128, (2, 4 * decimate.R), np.int8)
     decimate.StreamingDecimatorInt8(tables.polyphase_bank(),
                                     "cpu").process(i8, q8)
     assert {n: k.launches for n, k in build.KERNELS.items()} == \
-        {"bp": 0, "decimate": 0, "llr": 0, "osd": 0, "sync": 0,
-         "waterfall": 0}
+        {"bp": 0, "decimate": 0, "llr": 0, "osd": 0, "subtract": 0,
+         "sync": 0, "waterfall": 0}
 
 
 def test_decimator_bank_equals_jax_and_its_split_keeps_22_bits():

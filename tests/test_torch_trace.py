@@ -36,7 +36,8 @@ BASE = ["-f", "20m", "-c", "T1ST", "-l", "AA00"]
 DECODE_SPANS = {"decode", "decode.upload", "decode.forward",
                 "decode.download", "decode.unpack", "decode.stats"}
 DEEP_COUNTERS = ("passes", "ap_rows", "bank_rows", "deep_rows",
-                 "osd_candidates", "osd_device_rows", "osd_recovered")
+                 "osd_candidates", "osd_device_rows", "osd_recovered",
+                 "subtract_pairs")
 
 
 @pytest.fixture(scope="module")
@@ -122,7 +123,12 @@ def test_detailed_decode_window_spans_and_counters(batch, decoder, unpacked,
     assert all(c[f"decode.launches.{n}"] == 0 for n in build.KERNELS)
     assert (c["decode.passes"], c["decode.ap_rows"],
             c["decode.bank_rows"]) == (passes, 0, 0)
-    assert not {f"decode.{k}" for k in DEEP_COUNTERS[3:]} & set(c)
+    assert not {f"decode.{k}" for k in DEEP_COUNTERS[3:-1]} & set(c)
+    # the subtraction's pairs: the first pass's ten decodes of channel 0
+    # (golden_10sig.single_pass.txt), none of the silent channel; no
+    # kernel on the CPU
+    assert c.get("decode.subtract_pairs") == (None if passes == 1 else 10)
+    assert c["decode.launches.subtract"] == 0
 
 
 def test_upload_bytes_zero_for_tensors_on_the_device(batch, decoder):
@@ -242,6 +248,8 @@ def test_detailed_deep_decode_spans_and_counters(batch, decoder, unpacked):
     assert c["decode.osd_candidates"] <= 2 * sum(osd_seen)
     assert c["decode.osd_device_rows"] == 0                 # the CPU
     assert c["decode.osd_recovered"] == stats.extra["osd_recovered"]
+    assert c["decode.subtract_pairs"] > 0
+    assert c["decode.launches.subtract"] == 0               # the CPU
 
 
 def test_elastic_window_records_the_decode_spans(batch, unpacked):
@@ -374,3 +382,7 @@ def test_device_ms_of_deep_and_subtract():
     assert c["decode.deep_rows"] == 8 * 2
     assert c["decode.osd_device_rows"] == c["decode.osd_candidates"] > 0
     assert 1 <= c["decode.launches.osd"] <= 2           # one a pass with rows
+    # refine and residual: two launches a subtraction
+    assert paths["decode.subtract"]["count"] == 1
+    assert c["decode.launches.subtract"] == 2
+    assert c["decode.subtract_pairs"] > 0
